@@ -1,0 +1,403 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one card and hold its kernels to their
+plain versions.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result line):
+
+1. build   -- compile ``pomcpp_tpu_torch/csrc`` with nvcc for sm_90a;
+2. step    -- the fused step kernel vs ``fused_step_plain``, bit for bit:
+              every 6^4 joint move on a kick-heavy state, and 4096 boards
+              with mixed kick stepped 50 steps with host-drawn moves;
+3. chunk   -- the chunk kernel vs ``rollout_chunk_plain``, bit for bit, for
+              harmless and random at 1024 boards x 64 steps: once with
+              injected moves, injected reset boards and record=True, once
+              with in-kernel Philox draws and auto-reset;
+4. main    -- the main path at full width: 16384 boards from
+              ``random_cell_state`` on the card, 256-step chunks of harmless
+              then random self-play (a few chunks each), then a few single
+              fused steps of the whole batch; launch counts are reset just
+              before and read just after; state invariants checked;
+5. timing  -- each kernel at the main path's shapes against its plain
+              version on the same inputs (and their agreement there).
+
+The line before the last is a JSON object ``{"kernels": [...]}``; the last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+exits non-zero and prints no result.  It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+BOARDS = 16384          # bench.py's batch
+CHUNK = 256             # bench.py's steps per launch
+MAIN_CHUNKS = 3         # chunks per policy on the main path
+MAIN_STEPS = 4          # single fused steps on the main path
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 memory rate
+OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor peak
+STATE_BYTES = 7 * 121 * 4 + 7 * 4 * 4   # one board's 14 state arrays
+MOVE_BYTES = 4 * 4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def kick_heavy_state(device):
+    """Kick-enabled agents around two bombs (the 6^4 sweep's state)."""
+    import torch
+
+    from pomcpp_tpu_torch.engine.cellular import empty_cell_state
+
+    cs = empty_cell_state(1, device)
+    board = cs.board.clone()
+    bt, bs, bo = (cs.bomb_timer.clone(), cs.bomb_strength.clone(),
+                  cs.bomb_owner.clone())
+    for i, (x, y) in enumerate(((4, 5), (6, 5), (5, 4), (5, 6))):
+        board[0, x + 11 * y] = 10 + i
+    for owner, (x, y), life in ((0, (5, 5), 6), (1, (3, 5), 9)):
+        c = x + 11 * y
+        board[0, c], bt[0, c], bs[0, c], bo[0, c] = 3, life, 1, owner
+    i32 = dict(dtype=torch.int32, device=device)
+    return cs._replace(
+        board=board, bomb_timer=bt, bomb_strength=bs, bomb_owner=bo,
+        agent_x=torch.tensor([[4, 6, 5, 5]], **i32),
+        agent_y=torch.tensor([[5, 5, 4, 6]], **i32),
+        agent_bomb_count=torch.tensor([[1, 1, 0, 0]], **i32),
+        agent_can_kick=torch.ones((1, 4), dtype=torch.bool, device=device),
+    )
+
+
+def max_abs_err(a, b) -> int:
+    """Largest absolute difference over every CellState field."""
+    return max(
+        int((x.long() - y.long()).abs().max()) if x.numel() else 0
+        for x, y in zip(a, b)
+    )
+
+
+def expect_equal(what: str, a, b) -> int:
+    from pomcpp_tpu_torch.convert import diff_fields
+
+    bad = diff_fields(a, b, skip=())
+    if bad:
+        raise AssertionError(f"{what}: kernel and plain version differ in {bad}")
+    return max_abs_err(a, b)
+
+
+def check_invariants(cs) -> None:
+    import torch
+
+    x, y = cs.agent_x.long(), cs.agent_y.long()
+    assert ((x >= 0) & (x < 11) & (y >= 0) & (y < 11)).all(), "position off board"
+    assert torch.equal(cs.alive_count, 4 - cs.agent_dead.sum(1, dtype=torch.int32))
+    code = cs.board.gather(1, x + 11 * y)
+    ids = torch.arange(4, device=code.device) + 10
+    assert ((code == ids) | cs.agent_dead).all(), "live agent's cell lacks its code"
+    b = cs.board
+    valid = (b >= 0) & (b <= 13) & (b != 5) & (b != 9)
+    assert valid.all(), "invalid cell code"
+    bc, mb = cs.agent_bomb_count, cs.agent_max_bombs
+    assert ((bc >= 0) & (bc <= mb)).all(), "bomb count out of range"
+
+
+class Timer:
+    """CUDA-event timing of work on the current stream."""
+
+    def __init__(self):
+        import torch
+
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+
+    def __enter__(self):
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        self.end.record()
+
+    def ms(self) -> float:
+        self.end.synchronize()
+        return self.start.elapsed_time(self.end)
+
+
+def phase_build():
+    from pomcpp_tpu_torch import _ext
+
+    ver = subprocess.run([_ext.nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    log(f"[build] {ver[-1]}")
+    t0 = time.perf_counter()
+    _ext.lib()
+    log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in _ext.build_log.splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
+            log(f"[build] {line.strip()}")
+
+
+def phase_step(dev):
+    import torch
+
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.fused_step import fused_step, fused_step_plain
+
+    n = 6 ** 4
+    codes = torch.arange(n, device=dev)
+    moves = torch.stack([(codes // 6 ** i) % 6 for i in range(4)], 1).int()
+    cs = kick_heavy_state(dev)
+    csb = type(cs)(*(t.expand((n,) + t.shape[1:]).contiguous() for t in cs))
+    for depth in range(2):
+        k = fused_step(csb, moves, device=dev)
+        p = fused_step_plain(csb, moves)
+        expect_equal(f"step sweep depth {depth}", k, p)
+        csb = p
+    log("[step] 6^4 joint-move sweep (2 steps deep): kernel == plain")
+
+    b = 4096
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cs = random_cell_state(b, generator=gen)
+    cs = cs._replace(agent_can_kick=torch.rand((b, 4), generator=gen,
+                                               device=dev) < 0.5)
+    k = p = cs
+    for t in range(50):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, device=dev,
+                           dtype=torch.int32)
+        k = fused_step(k, mv, device=dev)
+        p = fused_step_plain(p, mv)
+        expect_equal(f"step batch t={t}", k, p)
+    log(f"[step] {b} boards x 50 steps, mixed kick: kernel == plain "
+        f"({int(p.agent_dead.sum())} agents dead at the end)")
+
+
+def phase_chunk(dev):
+    import torch
+
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.fused_step import (
+        rollout_chunk,
+        rollout_chunk_plain,
+    )
+
+    b, steps = 1024, 64
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for policy, n_moves in (("harmless", 5), ("random", 6)):
+        cs = random_cell_state(b, generator=gen)
+        dead = torch.zeros((b, 4), dtype=torch.bool, device=dev)
+        dead[: b // 8, 1:] = True           # finished at entry
+        dead[b // 8: b // 4, 2:] = True     # two agents left
+        cs = cs._replace(
+            agent_dead=dead,
+            alive_count=4 - dead.sum(1, dtype=torch.int32),
+            agent_can_kick=torch.rand((b, 4), generator=gen, device=dev) < 0.3,
+        )
+        moves = torch.randint(0, n_moves, (steps, b, 4), generator=gen,
+                              device=dev, dtype=torch.int32)
+        fresh = random_cell_state(b, generator=gen)
+        reset = (fresh.board, fresh.hidden_pow)
+        k = rollout_chunk(cs, 3, steps, policy, moves=moves, record=True,
+                          reset_boards=reset, device=dev)
+        p = rollout_chunk_plain(cs, 3, steps, policy, moves=moves,
+                                record=True, reset_boards=reset)
+        expect_equal(f"chunk {policy} injected", k[0], p[0])
+        assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+        log(f"[chunk] {policy}: injected moves + reset boards + record, "
+            f"{b} x {steps}: kernel == plain ({int(p[2].sum())} done marks)")
+
+        k = rollout_chunk(cs, 99, steps, policy, record=True, device=dev)
+        p = rollout_chunk_plain(cs, 99, steps, policy, record=True)
+        expect_equal(f"chunk {policy} philox", k[0], p[0])
+        assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+        assert int(k[1].min()) == 0 and int(k[1].max()) == n_moves - 1
+        log(f"[chunk] {policy}: in-kernel Philox draws + auto-reset, "
+            f"{b} x {steps}: kernel == plain")
+
+
+def phase_main(dev):
+    """The main path at full width; returns timings and launch counts."""
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.fused_step import (
+        draw_moves,
+        fused_step,
+        rollout_chunk,
+    )
+
+    cs = random_cell_state(BOARDS, seed=0)
+    # Warm-up chunk outside the counted run (first launch, lazy init).
+    rollout_chunk(cs, 1, 8, "harmless")
+    torch.cuda.synchronize()
+
+    _ext.reset_launches()
+    res = {"chunk_ms": {}, "steps_per_s": {}}
+    inputs = {}
+    seed = 100
+    for policy in ("harmless", "random"):
+        inputs[policy] = (cs, seed)
+        times = []
+        t0 = time.perf_counter()
+        for _ in range(MAIN_CHUNKS):
+            with Timer() as tm:
+                cs = rollout_chunk(cs, seed, CHUNK, policy)
+            times.append(tm)
+            seed += 1
+        int(cs.alive_count.sum())  # host fetch = real barrier
+        wall = time.perf_counter() - t0
+        res["chunk_ms"][policy] = [t.ms() for t in times]
+        res["steps_per_s"][policy] = BOARDS * CHUNK * MAIN_CHUNKS / wall
+        check_invariants(cs)
+        log(f"[main] {policy}: {BOARDS} boards x {CHUNK} steps x "
+            f"{MAIN_CHUNKS} chunks: {res['steps_per_s'][policy]:.0f} steps/s, "
+            f"chunk kernel ms {[round(t, 3) for t in res['chunk_ms'][policy]]}")
+    step_times = []
+    inputs["step"] = (cs, draw_moves(seed, 0, BOARDS, 6, dev))
+    for t in range(MAIN_STEPS):
+        mv = draw_moves(seed, t, BOARDS, 6, dev)
+        with Timer() as tm:
+            cs = fused_step(cs, mv)
+        step_times.append(tm)
+    int(cs.alive_count.sum())
+    check_invariants(cs)
+    res["step_ms"] = [t.ms() for t in step_times]
+    res["launches"] = dict(_ext.LAUNCHES)
+    log(f"[main] fused_step: {BOARDS} boards x {MAIN_STEPS} steps, kernel ms "
+        f"{[round(t, 3) for t in res['step_ms']]}")
+    log(f"[main] launches: {res['launches']}")
+    for name, n in res["launches"].items():
+        if n == 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    return res, inputs
+
+
+def phase_timing(inputs):
+    """Each kernel and its plain version on the main path's inputs."""
+    import torch
+
+    from pomcpp_tpu_torch.engine.fused_step import (
+        fused_step,
+        fused_step_plain,
+        rollout_chunk,
+        rollout_chunk_plain,
+    )
+
+    out = {}
+    cs, seed = inputs["random"]
+    with Timer() as tk:
+        k = rollout_chunk(cs, seed, CHUNK, "random")
+    with Timer() as tp:
+        p = rollout_chunk_plain(cs, seed, CHUNK, "random")
+    out["chunk"] = (tk.ms(), tp.ms(), expect_equal("main chunk", k, p))
+    log(f"[timing] chunk {BOARDS} x {CHUNK} random: kernel {tk.ms():.3f} ms, "
+        f"plain {tp.ms():.3f} ms, kernel == plain")
+
+    cs, mv = inputs["step"]
+    fused_step(cs, mv)
+    reps = 20
+    with Timer() as tk:
+        for _ in range(reps):
+            k = fused_step(cs, mv)
+    with Timer() as tp:
+        p = fused_step_plain(cs, mv)
+    out["step"] = (tk.ms() / reps, tp.ms(), expect_equal("main step", k, p))
+    log(f"[timing] step {BOARDS}: kernel {tk.ms() / reps:.3f} ms, "
+        f"plain {tp.ms():.3f} ms, kernel == plain")
+    torch.cuda.synchronize()
+    return out
+
+
+def bound_ms(board_steps: int, bytes_moved: int) -> tuple[float, str]:
+    """Least time: bytes over HBM rate vs one 32-bit op per state value per
+    board-step (7 planes x 121 cells) over the 32-bit peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = board_steps * 7 * 121 / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import pomcpp_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing ({e})",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    phase_build()
+    phase_step(dev)
+    phase_chunk(dev)
+    main_res, inputs = phase_main(dev)
+    timing = phase_timing(inputs)
+    torch.cuda.synchronize()
+
+    main_ms = {pol: sum(v) / len(v) for pol, v in main_res["chunk_ms"].items()}
+    chunk_bound, chunk_by = bound_ms(BOARDS * CHUNK, BOARDS * 2 * STATE_BYTES)
+    step_bound, step_by = bound_ms(
+        BOARDS, BOARDS * (2 * STATE_BYTES + MOVE_BYTES))
+    kernels = [
+        {
+            "name": "rollout_chunk_kernel", "route": "cuda",
+            "source": "pomcpp_tpu_torch/csrc/fused_step.cu",
+            "replaces": "pomcpp_tpu/engine/pallas_step.py:840",
+            "launches": main_res["launches"]["rollout_chunk_kernel"],
+            "max_abs_err": timing["chunk"][2],
+            "ms": timing["chunk"][0],
+            "main_ms": main_ms,
+            "plain_ms": timing["chunk"][1],
+            "bound_ms": chunk_bound, "bound_by": chunk_by,
+            "library_ms": None,
+            "held_in": ["chunk", "timing"],
+            "shape": f"{BOARDS} boards x {CHUNK} steps, random policy",
+        },
+        {
+            "name": "fused_step_kernel", "route": "cuda",
+            "source": "pomcpp_tpu_torch/csrc/fused_step.cu",
+            "replaces": "pomcpp_tpu/engine/pallas_step.py:1261",
+            "launches": main_res["launches"]["fused_step_kernel"],
+            "max_abs_err": timing["step"][2],
+            "ms": timing["step"][0],
+            "plain_ms": timing["step"][1],
+            "bound_ms": step_bound, "bound_by": step_by,
+            "library_ms": None,
+            "held_in": ["step", "timing"],
+            "shape": f"{BOARDS} boards x 1 step",
+        },
+    ]
+    log(f"[main] steps/s: {json.dumps(main_res['steps_per_s'])} on {smi}")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,54 @@
+"""The CUDA kernels vs their plain versions, bit for bit (card only).
+
+These need a CUDA card and ``nvcc``; without a card they skip.  On the
+card: ``python -m pytest tests/test_torch_kernels.py -q -m gpu``.
+``chip_smoke.py`` runs the same comparisons at the main path's sizes.
+"""
+
+import pytest
+import torch
+
+from pomcpp_tpu_torch.convert import diff_fields
+from pomcpp_tpu_torch.core.board_gen import random_cell_state
+from pomcpp_tpu_torch.engine.fused_step import (
+    fused_step,
+    fused_step_plain,
+    rollout_chunk,
+    rollout_chunk_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _batch(cuda, b, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    cs = random_cell_state(b, generator=gen)
+    kick = torch.rand((b, 4), generator=gen, device=cuda) < 0.5
+    return cs._replace(agent_can_kick=kick), gen
+
+
+def test_step_kernel_matches_plain(cuda):
+    cs, gen = _batch(cuda, 512, 1)
+    k = p = cs
+    for t in range(40):
+        mv = torch.randint(0, 6, (512, 4), generator=gen, device=cuda,
+                           dtype=torch.int32)
+        k = fused_step(k, mv)
+        p = fused_step_plain(p, mv)
+        assert not diff_fields(k, p, skip=()), f"step {t}"
+
+
+@pytest.mark.parametrize("policy", ["harmless", "random"])
+def test_chunk_kernel_matches_plain(cuda, policy):
+    cs, _ = _batch(cuda, 256, 2)
+    k = rollout_chunk(cs, 7, 48, policy, record=True)
+    p = rollout_chunk_plain(cs, 7, 48, policy, record=True)
+    assert not diff_fields(k[0], p[0], skip=())
+    assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])

@@ -1,0 +1,130 @@
+"""Package rules of the port: no JAX, explicit devices, lossless conversion."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from pomcpp_tpu.core.board_gen import random_cell_state as jax_random_cell_state
+from pomcpp_tpu.core.state import empty_state, plant_bomb, put_agent
+from pomcpp_tpu.engine.cellular import from_state
+from pomcpp_tpu_torch.convert import diff_fields, to_numpy, to_torch
+from pomcpp_tpu_torch.core.board_gen import random_cell_state
+from pomcpp_tpu_torch.engine import fused_step as fs
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "pomcpp_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "pomcpp_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name} imports {bad}"
+
+
+def test_cpu_step_leaves_jax_unloaded():
+    code = (
+        "import sys, torch\n"
+        "from pomcpp_tpu_torch.core.board_gen import random_cell_state\n"
+        "from pomcpp_tpu_torch.engine.fused_step import fused_step, rollout_chunk\n"
+        "cs = random_cell_state(4, seed=0, device='cpu')\n"
+        "cs = fused_step(cs, torch.zeros((4, 4), dtype=torch.int32), device='cpu')\n"
+        "cs = rollout_chunk(cs, 1, 3, 'random', device='cpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pomcpp_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_entry_points_without_device_need_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cs = random_cell_state(2, seed=0, device="cpu")
+    mv = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fs.fused_step(cs, mv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fs.rollout_chunk(cs, 0, 2, "harmless")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        random_cell_state(2, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        to_torch(to_numpy(cs))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fs.fused_step(cs, mv, device="cuda")
+
+
+def test_simple_policy_is_the_next_slice():
+    cs = random_cell_state(2, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        fs.rollout_chunk(cs, 0, 2, "simple", device="cpu")
+
+
+def test_convert_round_trip_is_lossless():
+    ref = jax.vmap(jax_random_cell_state)(jax.random.split(jax.random.PRNGKey(2), 6))
+    ref = jax.tree.map(np.asarray, ref)
+    ref = ref._replace(
+        agent_can_kick=np.arange(24).reshape(6, 4) % 3 == 0,
+        timestep=np.arange(6, dtype=np.int32) * 1000,
+    )
+    cs = to_torch(ref, "cpu")
+    back = to_numpy(cs)
+    assert not diff_fields(ref, back, skip=())
+    for name in type(cs)._fields:
+        assert getattr(back, name).dtype == getattr(ref, name).dtype, name
+        assert getattr(cs, name).dtype == (
+            torch.bool if name in ("agent_can_kick", "agent_dead") else torch.int32
+        )
+    again = to_torch(back, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(cs, again))
+
+
+def test_smoke_sweep_state_is_the_reference_state():
+    """chip_smoke's 6^4-sweep state equals the JAX tests' kick-heavy state."""
+    s = empty_state()
+    s = put_agent(s, 4, 5, 0)
+    s = put_agent(s, 6, 5, 1)
+    s = put_agent(s, 5, 4, 2)
+    s = put_agent(s, 5, 6, 3)
+    s = s._replace(agent_can_kick=jax.numpy.ones((4,), bool))
+    s = plant_bomb(s, 5, 5, 0, set_item=True, life=6)
+    s = plant_bomb(s, 3, 5, 1, set_item=True, life=9)
+    ref = jax.tree.map(lambda x: np.asarray(x)[None], from_state(s))
+    assert not diff_fields(ref, chip_smoke.kick_heavy_state("cpu"), skip=())
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """No CUDA device, or no package beside the script: non-zero exit and
+    no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (lone, tmp_path)):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
