@@ -6,21 +6,30 @@ plain versions.
 
 Phases (any failure exits non-zero before the result line):
 
-1. build   -- compile ``pomcpp_tpu_torch/csrc`` with nvcc for sm_90a;
+1. build   -- compile ``pomcpp_tpu_torch/csrc`` with nvcc for sm_90a and
+              print each kernel's ``-Xptxas -v`` register count;
 2. step    -- the fused step kernel vs ``fused_step_plain``, bit for bit:
               every 6^4 joint move on a kick-heavy state, and 4096 boards
               with mixed kick stepped 50 steps with host-drawn moves;
-3. chunk   -- the chunk kernel vs ``rollout_chunk_plain``, bit for bit, for
-              harmless and random at 1024 boards x 64 steps: once with
-              injected moves, injected reset boards and record=True, once
-              with in-kernel Philox draws and auto-reset;
-4. main    -- the main path at full width: 16384 boards from
-              ``random_cell_state`` on the card, 256-step chunks of harmless
-              then random self-play (a few chunks each), then a few single
-              fused steps of the whole batch; launch counts are reset just
-              before and read just after; state invariants checked;
-5. timing  -- each kernel at the main path's shapes against its plain
-              version on the same inputs (and their agreement there).
+3. fsm     -- the SimpleAgent act kernel vs ``fsm_act_plain``, bit for bit
+              (moves and the ten FSM arrays): 4096 generated boards stepped
+              30 acts, close-quarters boards and boards with dead agents;
+4. chunk   -- the chunk kernel vs ``rollout_chunk_plain``, bit for bit, at
+              1024 boards x 64 steps: harmless and random once with injected
+              moves, injected reset boards and record=True, once with
+              in-kernel Philox draws and auto-reset; simple with injected
+              rands + reset boards + record, with Philox draws + auto-reset,
+              and with ``inject_slots=(0,)`` + ``prng_rand=True``;
+5. main    -- the main path at full width: 16384 boards from
+              ``random_cell_state`` on the card, 256-step chunks of harmless,
+              random, then simple self-play (a few chunks each, the FSM
+              state carried across chunks), then a few single SimpleAgent
+              steps of the whole batch (``fsm_act`` + ``fused_step``);
+              launch counts are reset just before and read just after;
+              state invariants checked;
+6. timing  -- each kernel at the main path's shapes against its plain
+              version on the same inputs (and their agreement there); the
+              plain simple chunk runs 16 of the 256 steps.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -41,7 +50,9 @@ MAIN_STEPS = 4          # single fused steps on the main path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 memory rate
 OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor peak
 STATE_BYTES = 7 * 121 * 4 + 7 * 4 * 4   # one board's 14 state arrays
+FSM_BYTES = 10 * 4 * 4                  # one board's ten FSM arrays
 MOVE_BYTES = 4 * 4
+PLAIN_SIMPLE_STEPS = 16   # steps of the plain simple chunk in the timing
 
 
 def log(msg: str) -> None:
@@ -99,6 +110,41 @@ def expect_equal(what: str, a, b) -> int:
     return max_abs_err(a, b)
 
 
+def expect_fsm_equal(what: str, a, b) -> int:
+    """Moves or FSM arrays: exact equality; returns the max abs error (0)."""
+    import torch
+
+    for k, (x, y) in enumerate(zip(a, b)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: kernel and plain differ in array {k}")
+    return 0
+
+
+def close_quarters(cs, gen):
+    """All four agents moved onto distinct cells of a random 5x5 window."""
+    import torch
+
+    b, dev = cs.board.shape[0], cs.board.device
+    rows = torch.arange(b, device=dev)
+    board = cs.board.clone()
+    for i in range(4):
+        board[rows, cs.agent_x[:, i] + 11 * cs.agent_y[:, i]] = 0
+    origin = torch.randint(0, 7, (b, 2), generator=gen, device=dev)
+    cells = torch.rand((b, 25), generator=gen, device=dev).argsort(1)[:, :4]
+    ax = (origin[:, :1] + cells % 5).int()
+    ay = (origin[:, 1:] + cells // 5).int()
+    for i in range(4):
+        board[rows, ax[:, i] + 11 * ay[:, i]] = 10 + i
+    return cs._replace(board=board, agent_x=ax, agent_y=ay)
+
+
+def kill(cs, dead):
+    import torch
+
+    return cs._replace(agent_dead=dead,
+                       alive_count=4 - dead.sum(1, dtype=torch.int32))
+
+
 def check_invariants(cs) -> None:
     import torch
 
@@ -136,6 +182,22 @@ class Timer:
         return self.start.elapsed_time(self.end)
 
 
+def register_counts(build_log: str) -> dict:
+    """Registers per thread of each kernel, from nvcc's -Xptxas -v log."""
+    names = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
+             ("rollout_chunk_kernelILb0", "rollout_chunk_kernel"),
+             ("fsm_act_kernel", "fsm_act_kernel"),
+             ("fused_step_kernel", "fused_step_kernel"))
+    regs, current = {}, None
+    for line in build_log.splitlines():
+        if "entry function" in line:
+            current = next((n for key, n in names if key in line), None)
+        elif "registers" in line and current:
+            regs[current] = int(line.split("Used")[1].split()[0])
+            current = None
+    return regs
+
+
 def phase_build():
     from pomcpp_tpu_torch import _ext
 
@@ -148,6 +210,9 @@ def phase_build():
     for line in _ext.build_log.splitlines():
         if "registers" in line or "spill" in line or "entry function" in line:
             log(f"[build] {line.strip()}")
+    regs = register_counts(_ext.build_log)
+    log(f"[build] registers per thread: {json.dumps(regs)}")
+    return regs
 
 
 def phase_step(dev):
@@ -184,10 +249,45 @@ def phase_step(dev):
         f"({int(p.agent_dead.sum())} agents dead at the end)")
 
 
+def phase_fsm(dev):
+    import torch
+
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.fsm import (
+        fsm_act,
+        fsm_act_plain,
+        simple_fsm_state_init,
+    )
+    from pomcpp_tpu_torch.engine.fused_step import fused_step_plain
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def run(what, cs, acts):
+        b = cs.board.shape[0]
+        fk = fp = simple_fsm_state_init(b, dev)
+        for t in range(acts):
+            rand = torch.randint(0, 5, (b, 4), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            mk, fk = fsm_act(cs, fk, rand, device=dev)
+            mp, fp = fsm_act_plain(cs, fp, rand)
+            expect_fsm_equal(f"fsm {what} act {t}", (mk,) + fk, (mp,) + fp)
+            cs = fused_step_plain(cs, torch.where(cs.agent_dead, 0, mp))
+        log(f"[fsm] {what}: {b} boards x {acts} acts: kernel == plain "
+            f"({int(cs.agent_dead.sum())} agents dead at the end)")
+
+    run("generated", random_cell_state(4096, generator=gen), 30)
+    run("close quarters", close_quarters(random_cell_state(1024, generator=gen),
+                                         gen), 30)
+    cs = close_quarters(random_cell_state(1024, generator=gen), gen)
+    dead = torch.rand((1024, 4), generator=gen, device=dev) < 0.4
+    run("dead agents", kill(cs, dead), 30)
+
+
 def phase_chunk(dev):
     import torch
 
     from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
     from pomcpp_tpu_torch.engine.fused_step import (
         rollout_chunk,
         rollout_chunk_plain,
@@ -226,6 +326,35 @@ def phase_chunk(dev):
         log(f"[chunk] {policy}: in-kernel Philox draws + auto-reset, "
             f"{b} x {steps}: kernel == plain")
 
+    cs = close_quarters(random_cell_state(b, generator=gen), gen)
+    dead = torch.zeros((b, 4), dtype=torch.bool, device=dev)
+    dead[: b // 8, 1:] = True           # finished at entry
+    dead[b // 8: b // 4, :2] = True     # stale sources of dead agents
+    cs = kill(cs, dead)
+    fsm = simple_fsm_state_init(b, dev)
+    fresh = random_cell_state(b, generator=gen)
+    reset = (fresh.board, fresh.hidden_pow)
+    rands = torch.randint(0, 5, (steps, b, 4), generator=gen, device=dev,
+                          dtype=torch.int32)
+    learner = torch.randint(0, 6, (steps, b, 4), generator=gen, device=dev,
+                            dtype=torch.int32)
+    cases = (
+        ("injected rands + reset boards + record", 3,
+         dict(moves=rands, reset_boards=reset)),
+        ("in-kernel Philox draws + auto-reset", 99, {}),
+        ("inject_slots=(0,) + prng_rand", 7,
+         dict(moves=learner, inject_slots=(0,), prng_rand=True)),
+    )
+    for what, seed, kw in cases:
+        k = rollout_chunk(cs, seed, steps, "simple", record=True,
+                          fsm_state=fsm, device=dev, **kw)
+        p = rollout_chunk_plain(cs, seed, steps, "simple", record=True,
+                                fsm_state=fsm, **kw)
+        expect_equal(f"chunk simple {what}", k[0], p[0])
+        expect_fsm_equal(f"chunk simple {what}", k[1:3] + k[3], p[1:3] + p[3])
+        log(f"[chunk] simple: {what}, {b} x {steps}: kernel == plain "
+            f"({int(p[2].sum())} done marks)")
+
 
 def phase_main(dev):
     """The main path at full width; returns timings and launch counts."""
@@ -233,6 +362,7 @@ def phase_main(dev):
 
     from pomcpp_tpu_torch import _ext
     from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.fsm import fsm_act, simple_fsm_state_init
     from pomcpp_tpu_torch.engine.fused_step import (
         draw_moves,
         fused_step,
@@ -240,21 +370,27 @@ def phase_main(dev):
     )
 
     cs = random_cell_state(BOARDS, seed=0)
-    # Warm-up chunk outside the counted run (first launch, lazy init).
+    fsm = simple_fsm_state_init(BOARDS)
+    # Warm-up chunks outside the counted run (first launch, lazy init).
     rollout_chunk(cs, 1, 8, "harmless")
+    rollout_chunk(cs, 1, 8, "simple", fsm_state=fsm)
     torch.cuda.synchronize()
 
     _ext.reset_launches()
     res = {"chunk_ms": {}, "steps_per_s": {}}
     inputs = {}
     seed = 100
-    for policy in ("harmless", "random"):
-        inputs[policy] = (cs, seed)
+    for policy in ("harmless", "random", "simple"):
+        inputs[policy] = (cs, seed, fsm)
         times = []
         t0 = time.perf_counter()
         for _ in range(MAIN_CHUNKS):
             with Timer() as tm:
-                cs = rollout_chunk(cs, seed, CHUNK, policy)
+                if policy == "simple":
+                    cs, fsm = rollout_chunk(cs, seed, CHUNK, policy,
+                                            fsm_state=fsm)
+                else:
+                    cs = rollout_chunk(cs, seed, CHUNK, policy)
             times.append(tm)
             seed += 1
         int(cs.alive_count.sum())  # host fetch = real barrier
@@ -265,19 +401,28 @@ def phase_main(dev):
         log(f"[main] {policy}: {BOARDS} boards x {CHUNK} steps x "
             f"{MAIN_CHUNKS} chunks: {res['steps_per_s'][policy]:.0f} steps/s, "
             f"chunk kernel ms {[round(t, 3) for t in res['chunk_ms'][policy]]}")
-    step_times = []
+    assert ((fsm.rp_count >= 0) & (fsm.rp_count <= 4)).all(), "ring count"
+    # Single SimpleAgent steps: one act kernel + one step kernel each.
+    step_times, act_times = [], []
+    rand = draw_moves(seed, 0, BOARDS, 5, dev)
     inputs["step"] = (cs, draw_moves(seed, 0, BOARDS, 6, dev))
+    inputs["fsm"] = (cs, fsm, rand)
     for t in range(MAIN_STEPS):
-        mv = draw_moves(seed, t, BOARDS, 6, dev)
+        rand = draw_moves(seed, t, BOARDS, 5, dev)
+        with Timer() as ta:
+            mv, fsm = fsm_act(cs, fsm, rand)
         with Timer() as tm:
-            cs = fused_step(cs, mv)
+            cs = fused_step(cs, torch.where(cs.agent_dead, 0, mv))
         step_times.append(tm)
+        act_times.append(ta)
     int(cs.alive_count.sum())
     check_invariants(cs)
     res["step_ms"] = [t.ms() for t in step_times]
+    res["act_ms"] = [t.ms() for t in act_times]
     res["launches"] = dict(_ext.LAUNCHES)
-    log(f"[main] fused_step: {BOARDS} boards x {MAIN_STEPS} steps, kernel ms "
-        f"{[round(t, 3) for t in res['step_ms']]}")
+    log(f"[main] fsm_act + fused_step: {BOARDS} boards x {MAIN_STEPS} steps, "
+        f"act kernel ms {[round(t, 3) for t in res['act_ms']]}, "
+        f"step kernel ms {[round(t, 3) for t in res['step_ms']]}")
     log(f"[main] launches: {res['launches']}")
     for name, n in res["launches"].items():
         if n == 0:
@@ -289,6 +434,7 @@ def phase_timing(inputs):
     """Each kernel and its plain version on the main path's inputs."""
     import torch
 
+    from pomcpp_tpu_torch.engine.fsm import fsm_act, fsm_act_plain
     from pomcpp_tpu_torch.engine.fused_step import (
         fused_step,
         fused_step_plain,
@@ -297,7 +443,7 @@ def phase_timing(inputs):
     )
 
     out = {}
-    cs, seed = inputs["random"]
+    cs, seed, _ = inputs["random"]
     with Timer() as tk:
         k = rollout_chunk(cs, seed, CHUNK, "random")
     with Timer() as tp:
@@ -316,6 +462,33 @@ def phase_timing(inputs):
         p = fused_step_plain(cs, mv)
     out["step"] = (tk.ms() / reps, tp.ms(), expect_equal("main step", k, p))
     log(f"[timing] step {BOARDS}: kernel {tk.ms() / reps:.3f} ms, "
+        f"plain {tp.ms():.3f} ms, kernel == plain")
+
+    cs, seed, fsm = inputs["simple"]
+    with Timer() as tk:
+        rollout_chunk(cs, seed, CHUNK, "simple", fsm_state=fsm)
+    n = PLAIN_SIMPLE_STEPS
+    k = rollout_chunk(cs, seed, n, "simple", fsm_state=fsm)
+    with Timer() as tp:
+        p = rollout_chunk_plain(cs, seed, n, "simple", fsm_state=fsm)
+    err = expect_equal("main simple chunk", k[0], p[0])
+    err = max(err, expect_fsm_equal("main simple chunk FSM", k[1], p[1]))
+    out["simple"] = (tk.ms(), tp.ms(), err)
+    log(f"[timing] simple chunk {BOARDS} x {CHUNK}: kernel {tk.ms():.3f} ms; "
+        f"plain {BOARDS} x {n}: {tp.ms():.3f} ms; kernel == plain at "
+        f"{BOARDS} x {n}")
+
+    cs, fsm, rand = inputs["fsm"]
+    fsm_act(cs, fsm, rand)
+    with Timer() as tk:
+        for _ in range(reps):
+            k = fsm_act(cs, fsm, rand)
+    with Timer() as tp:
+        p = fsm_act_plain(cs, fsm, rand)
+    out["fsm"] = (tk.ms() / reps, tp.ms(),
+                  expect_fsm_equal("main fsm_act", (k[0],) + k[1],
+                                   (p[0],) + p[1]))
+    log(f"[timing] fsm_act {BOARDS}: kernel {tk.ms() / reps:.3f} ms, "
         f"plain {tp.ms():.3f} ms, kernel == plain")
     torch.cuda.synchronize()
     return out
@@ -345,8 +518,9 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    phase_build()
+    regs = phase_build()
     phase_step(dev)
+    phase_fsm(dev)
     phase_chunk(dev)
     main_res, inputs = phase_main(dev)
     timing = phase_timing(inputs)
@@ -356,6 +530,10 @@ def main() -> int:
     chunk_bound, chunk_by = bound_ms(BOARDS * CHUNK, BOARDS * 2 * STATE_BYTES)
     step_bound, step_by = bound_ms(
         BOARDS, BOARDS * (2 * STATE_BYTES + MOVE_BYTES))
+    simple_bound, simple_by = bound_ms(
+        BOARDS * CHUNK, BOARDS * 2 * (STATE_BYTES + FSM_BYTES))
+    act_bound, act_by = bound_ms(
+        BOARDS, BOARDS * (STATE_BYTES + 2 * FSM_BYTES + 2 * MOVE_BYTES))
     kernels = [
         {
             "name": "rollout_chunk_kernel", "route": "cuda",
@@ -364,7 +542,7 @@ def main() -> int:
             "launches": main_res["launches"]["rollout_chunk_kernel"],
             "max_abs_err": timing["chunk"][2],
             "ms": timing["chunk"][0],
-            "main_ms": main_ms,
+            "main_ms": {p: main_ms[p] for p in ("harmless", "random")},
             "plain_ms": timing["chunk"][1],
             "bound_ms": chunk_bound, "bound_by": chunk_by,
             "library_ms": None,
@@ -384,7 +562,37 @@ def main() -> int:
             "held_in": ["step", "timing"],
             "shape": f"{BOARDS} boards x 1 step",
         },
+        {
+            "name": "rollout_chunk_simple_kernel", "route": "cuda",
+            "source": "pomcpp_tpu_torch/csrc/fused_step.cu",
+            "replaces": "pomcpp_tpu/engine/pallas_step.py:840 (policy simple)",
+            "launches": main_res["launches"]["rollout_chunk_simple_kernel"],
+            "max_abs_err": timing["simple"][2],
+            "ms": timing["simple"][0],
+            "main_ms": main_ms["simple"],
+            "plain_ms": timing["simple"][1],
+            "plain_shape": f"{BOARDS} boards x {PLAIN_SIMPLE_STEPS} steps",
+            "bound_ms": simple_bound, "bound_by": simple_by,
+            "library_ms": None,
+            "held_in": ["chunk", "timing"],
+            "shape": f"{BOARDS} boards x {CHUNK} steps, simple policy",
+        },
+        {
+            "name": "fsm_act_kernel", "route": "cuda",
+            "source": "pomcpp_tpu_torch/csrc/fsm_block.cuh",
+            "replaces": "pomcpp_tpu/engine/pallas_fsm.py:357",
+            "launches": main_res["launches"]["fsm_act_kernel"],
+            "max_abs_err": timing["fsm"][2],
+            "ms": timing["fsm"][0],
+            "plain_ms": timing["fsm"][1],
+            "bound_ms": act_bound, "bound_by": act_by,
+            "library_ms": None,
+            "held_in": ["fsm", "timing"],
+            "shape": f"{BOARDS} boards x 1 act",
+        },
     ]
+    for row in kernels:
+        row["registers"] = regs.get(row["name"])
     log(f"[main] steps/s: {json.dumps(main_res['steps_per_s'])} on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

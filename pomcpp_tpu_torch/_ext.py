@@ -22,13 +22,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_step.cu",)
-HEADERS = ("step_block.cuh",)
+HEADERS = ("step_block.cuh", "fsm_block.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ext"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("fused_step_kernel", "rollout_chunk_kernel")
+KERNELS = ("fused_step_kernel", "rollout_chunk_kernel",
+           "rollout_chunk_simple_kernel", "fsm_act_kernel")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -78,6 +79,12 @@ class StateView(ctypes.Structure):
     _fields_ = [("f", ctypes.c_void_p * 14)]
 
 
+class FsmView(ctypes.Structure):
+    """Device pointers of the ten FSM state arrays (csrc FsmView)."""
+
+    _fields_ = [("f", ctypes.c_void_p * 10)]
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
@@ -90,6 +97,14 @@ def lib() -> ctypes.CDLL:
             StateView, StateView, i, i, i, u, u, p, p, p, i, p, p, p,
         ]
         handle.pomcpp_rollout_chunk.restype = i
+        handle.pomcpp_rollout_chunk_simple.argtypes = [
+            StateView, StateView, FsmView, FsmView, i, i, u, u, p, i, i, p, p,
+            i, p, p, p,
+        ]
+        handle.pomcpp_rollout_chunk_simple.restype = i
+        handle.pomcpp_fsm_act.argtypes = [StateView, FsmView, FsmView, p, p,
+                                          i, p]
+        handle.pomcpp_fsm_act.restype = i
         handle.pomcpp_error_string.argtypes = [i]
         handle.pomcpp_error_string.restype = ctypes.c_char_p
         _lib = handle
@@ -103,10 +118,19 @@ def check(err: int) -> None:
         raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
 
 
-def state_view(arrays) -> StateView:
-    """StateView over 14 contiguous int32 CUDA tensors (kept alive by the
-    caller for the duration of the launch)."""
-    view = StateView()
+def _view(cls, arrays):
+    view = cls()
     for k, t in enumerate(arrays):
         view.f[k] = t.data_ptr()
     return view
+
+
+def state_view(arrays) -> StateView:
+    """StateView over 14 contiguous int32 CUDA tensors (kept alive by the
+    caller for the duration of the launch)."""
+    return _view(StateView, arrays)
+
+
+def fsm_view(arrays) -> FsmView:
+    """FsmView over the ten FSM state arrays, as ``state_view``."""
+    return _view(FsmView, arrays)

@@ -1,7 +1,8 @@
 """Cell-class predicates and agent placement on batched int32 tensors.
 
-The helpers of ``pomcpp_tpu.core.state`` that the plane engine needs
-(``is_powerup``, ``is_agent``, ``flag_item``, ``put_agents_in_corners``),
+The helpers of ``pomcpp_tpu.core.state`` that the plane engine and the
+SimpleAgent need (``is_powerup``, ``is_agent``, ``is_walkable``,
+``flag_item``, ``put_agents_in_corners``),
 written for tensors whose leading axis is the batch.  The queue-encoded
 exact-engine ``State`` is not part of the port yet.
 """
@@ -33,6 +34,10 @@ def is_powerup(c):
 
 def is_agent(c):
     return c >= C_AGENT0
+
+
+def is_walkable(c):
+    return is_powerup(c) | (c == C_PASSAGE)
 
 
 def flag_item(pwp):

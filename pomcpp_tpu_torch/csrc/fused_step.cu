@@ -4,10 +4,15 @@
 // fused_step_kernel replaces `_kernel` / `pallas_step`
 // (pomcpp_tpu/engine/pallas_step.py:1261, :1283): one step for B boards.
 // rollout_chunk_kernel replaces `_chunk_kernel` / `pallas_rollout_chunk`
-// (:840, :1069) for the harmless and random policies: each CTA loads one
-// board's state once, runs `steps` steps with in-kernel Philox move draws
-// and the pipelined auto-reset, and writes the state back once -- the
-// counterpart of the TPU kernel keeping its block in VMEM for a chunk.
+// (:840, :1069): each CTA loads one board's state once, runs `steps` steps
+// with in-kernel Philox draws and the pipelined auto-reset, and writes the
+// state back once -- the counterpart of the TPU kernel keeping its block in
+// VMEM for a chunk.  rollout_chunk_kernel<false> serves the harmless and
+// random policies; rollout_chunk_kernel<true> is policy="simple": the draws
+// are the SimpleAgent's rands, the FSM of fsm_block.cuh picks the moves
+// (with the `inject_slots` override of mixed control), and the ten FSM
+// arrays ride along in shared memory.  fsm_act_kernel replaces one
+// `fsm_block` act (pomcpp_tpu/engine/pallas_fsm.py:357) for B boards.
 //
 // Bound on the card: a chunk moves 2 x 3,500 bytes per board through HBM
 // (plus the optional test-hook arrays), so at 16384 boards the byte bound
@@ -20,7 +25,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "fsm_block.cuh"
 #include "step_block.cuh"
 
 namespace pomcpp {
@@ -115,16 +122,21 @@ __global__ void __launch_bounds__(NT) fused_step_kernel(StateView in, StateView 
   store_board(out, b, c, s, A);
 }
 
+// kSimple: `n_moves` is 5, the draws (or moves[t] unless prng_rand) are the
+// FSM's rands, and lanes set in inject_mask take their move from moves[t].
+template <bool kSimple>
 __global__ void __launch_bounds__(NT) rollout_chunk_kernel(
-    StateView in, StateView out, int batch, int steps, int n_moves, uint32_t k0, uint32_t k1,
-    const int32_t* __restrict__ moves, const int32_t* __restrict__ reset_board,
-    const int32_t* __restrict__ reset_hidden, int auto_reset, int32_t* __restrict__ rec_moves,
-    int32_t* __restrict__ rec_done) {
+    StateView in, StateView out, FsmView fin, FsmView fout, int batch, int steps, int n_moves,
+    uint32_t k0, uint32_t k1, const int32_t* __restrict__ moves, int inject_mask, int prng_rand,
+    const int32_t* __restrict__ reset_board, const int32_t* __restrict__ reset_hidden,
+    int auto_reset, int32_t* __restrict__ rec_moves, int32_t* __restrict__ rec_done) {
   __shared__ Shared sh;
+  __shared__ std::conditional_t<kSimple, FsmShared, char> fs;
   const int b = blockIdx.x, c = threadIdx.x;
   Cell s;
   Agents A;
   load_board(in, b, c, s, A);
+  if constexpr (kSimple) fsm_load(fin, b, c, fs);
 
   // This board's replacement terrain, drawn once per chunk (_fresh_boards).
   int fboard = 0, fhidden = 0;
@@ -164,7 +176,7 @@ __global__ void __launch_bounds__(NT) rollout_chunk_kernel(
   bool done = auto_reset && finished(A);
   for (int t = 0; t < steps; ++t) {
     int mv[NA];
-    if (moves != nullptr) {
+    if (moves != nullptr && !(kSimple && prng_rand)) {
 #pragma unroll
       for (int i = 0; i < NA; ++i) mv[i] = moves[((size_t)t * batch + b) * NA + i];
     } else {
@@ -174,8 +186,20 @@ __global__ void __launch_bounds__(NT) rollout_chunk_kernel(
     }
     bool done_next = done;
     if (auto_reset) {
-      if (done) merge_fresh();
+      if (done) {
+        merge_fresh();
+        if constexpr (kSimple) fsm_reset(c, fs);
+      }
       done_next = finished(A);
+    }
+    if constexpr (kSimple) {
+      const int rnd[NA] = {mv[0], mv[1], mv[2], mv[3]};
+      fsm_act(s, A, rnd, fs, mv);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        if ((inject_mask >> i) & 1) mv[i] = moves[((size_t)t * batch + b) * NA + i];
+        if (A.dead[i]) mv[i] = 0;
+      }
     }
     step_board(s, A, mv, sh);
     if (rec_moves != nullptr && c < NA) {
@@ -185,8 +209,29 @@ __global__ void __launch_bounds__(NT) rollout_chunk_kernel(
     done = done_next;
   }
   // Catch-up merge: boards that finished in the last two steps.
-  if (auto_reset && finished(A)) merge_fresh();
+  if (auto_reset && finished(A)) {
+    merge_fresh();
+    if constexpr (kSimple) fsm_reset(c, fs);
+  }
   store_board(out, b, c, s, A);
+  if constexpr (kSimple) fsm_store(fout, b, c, fs);
+}
+
+__global__ void __launch_bounds__(NT) fsm_act_kernel(StateView in, FsmView fin, FsmView fout,
+                                                     const int32_t* __restrict__ rands,
+                                                     int32_t* __restrict__ moves) {
+  __shared__ FsmShared fs;
+  const int b = blockIdx.x, c = threadIdx.x;
+  Cell s;
+  Agents A;
+  load_board(in, b, c, s, A);
+  fsm_load(fin, b, c, fs);
+  int rnd[NA], mv[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) rnd[i] = rands[b * NA + i];
+  fsm_act(s, A, rnd, fs, mv);
+  if (c < NA) moves[b * NA + c] = pick4(mv, c);
+  fsm_store(fout, b, c, fs);
 }
 
 }  // namespace pomcpp
@@ -205,9 +250,31 @@ int pomcpp_rollout_chunk(pomcpp::StateView in, pomcpp::StateView out, int batch,
                          const int32_t* reset_board, const int32_t* reset_hidden, int auto_reset,
                          int32_t* rec_moves, int32_t* rec_done, void* stream) {
   if (batch <= 0 || steps < 0 || n_moves <= 0) return (int)cudaErrorInvalidValue;
-  pomcpp::rollout_chunk_kernel<<<batch, pomcpp::NT, 0, (cudaStream_t)stream>>>(
-      in, out, batch, steps, n_moves, k0, k1, moves, reset_board, reset_hidden, auto_reset,
-      rec_moves, rec_done);
+  pomcpp::rollout_chunk_kernel<false><<<batch, pomcpp::NT, 0, (cudaStream_t)stream>>>(
+      in, out, pomcpp::FsmView{}, pomcpp::FsmView{}, batch, steps, n_moves, k0, k1, moves, 0, 0,
+      reset_board, reset_hidden, auto_reset, rec_moves, rec_done);
+  return (int)cudaGetLastError();
+}
+
+int pomcpp_rollout_chunk_simple(pomcpp::StateView in, pomcpp::StateView out, pomcpp::FsmView fin,
+                                pomcpp::FsmView fout, int batch, int steps, uint32_t k0,
+                                uint32_t k1, const int32_t* moves, int inject_mask,
+                                int prng_rand, const int32_t* reset_board,
+                                const int32_t* reset_hidden, int auto_reset, int32_t* rec_moves,
+                                int32_t* rec_done, void* stream) {
+  if (batch <= 0 || steps < 0 || (inject_mask != 0 && moves == nullptr))
+    return (int)cudaErrorInvalidValue;
+  pomcpp::rollout_chunk_kernel<true><<<batch, pomcpp::NT, 0, (cudaStream_t)stream>>>(
+      in, out, fin, fout, batch, steps, 5, k0, k1, moves, inject_mask, prng_rand, reset_board,
+      reset_hidden, auto_reset, rec_moves, rec_done);
+  return (int)cudaGetLastError();
+}
+
+int pomcpp_fsm_act(pomcpp::StateView in, pomcpp::FsmView fin, pomcpp::FsmView fout,
+                   const int32_t* rands, int32_t* moves, int batch, void* stream) {
+  if (batch <= 0) return (int)cudaErrorInvalidValue;
+  pomcpp::fsm_act_kernel<<<batch, pomcpp::NT, 0, (cudaStream_t)stream>>>(in, fin, fout, rands,
+                                                                        moves);
   return (int)cudaGetLastError();
 }
 

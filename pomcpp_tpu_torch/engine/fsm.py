@@ -1,0 +1,101 @@
+"""The SimpleAgent FSM as the chunk kernel runs it, with its plain version.
+
+Counterpart of ``pomcpp_tpu.engine.pallas_fsm`` (``fsm_block`` with
+``swar_bfs`` and ``danger_map_tile``).  The kernel's state is the
+ten-array ``FsmState`` (``agents/simple.py``); one act for B boards:
+
+* ``fsm_act_plain(cs, fsm_state, rand)`` -- the plain version: the toolkit
+  FSM (``agents.simple_cellular.simple_agent_cell_joint``) read from and
+  written to the kernel layout;
+* ``fsm_act(cs, fsm_state, rand, device=None)`` -- launches
+  ``fsm_act_kernel`` (``csrc/fused_step.cu`` + ``csrc/fsm_block.cuh``) on a
+  CUDA tensor and adds one to ``_ext.LAUNCHES["fsm_act_kernel"]``; on a CPU
+  tensor it runs the plain version.  It is the one-act test bed of the
+  device code that the simple chunk kernel runs every step.
+
+Both return ``(moves, fsm_state')``: the FSM's own moves i32[B, 4] (dead
+agents' moves are not zeroed here; the chunk does that) and the next state
+with head 0.  ``rand`` is i32[B, 4], one draw per agent.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _ext
+from ..agents.simple import RP_STALE, FsmState
+from ..agents.simple_cellular import simple_agent_cell_joint
+from ..convert import fsm_to_simple_state, simple_state_to_fsm
+from ..core.constants import AGENT_COUNT
+from ..core.state import I32
+from ..device import resolve_device
+from .cellular import CellState
+
+
+def simple_fsm_state_init(b: int, device=None) -> FsmState:
+    """Fresh FSM state for ``b`` boards: ring slots at the stale code 14,
+    head, count and moveQueue slots at 0 (``simple_fsm_state_init`` of the
+    JAX package)."""
+    device = resolve_device(device)
+    rp = torch.full((b, AGENT_COUNT), RP_STALE, dtype=I32, device=device)
+    z = torch.zeros((b, AGENT_COUNT), dtype=I32, device=device)
+    return FsmState(rp, rp, rp, rp, z, z, z, z, z, z)
+
+
+def fsm_act_plain(cs: CellState, fsm_state, rand):
+    """Plain version of the FSM kernel (see the module docstring)."""
+    asts = fsm_to_simple_state(FsmState(*fsm_state))
+    moves, _, asts2 = simple_agent_cell_joint(cs, asts, rand)
+    return moves, simple_state_to_fsm(asts2)
+
+
+def fsm_inputs(fsm_state, b: int):
+    """The ten FSM arrays as contiguous int32 CUDA tensors [b, 4]."""
+    arrays = []
+    for t in fsm_state:
+        t = t.to(I32).contiguous()
+        if not t.is_cuda or t.shape != (b, AGENT_COUNT):
+            raise ValueError(f"FSM state arrays must be i32[{b}, 4] on the card")
+        arrays.append(t)
+    if len(arrays) != 10:
+        raise ValueError("the FSM state has ten arrays")
+    return arrays
+
+
+def _fsm_act_cuda(cs: CellState, fsm_state, rand):
+    from .fused_step import _kernel_inputs
+
+    ins = _kernel_inputs(cs)
+    b = ins[0].shape[0]
+    fin = fsm_inputs(fsm_state, b)
+    rand = rand.to(I32).contiguous()
+    if rand.shape != (b, AGENT_COUNT) or not rand.is_cuda:
+        raise ValueError(f"rand must be i32[{b}, 4] on the card")
+    fout = [torch.empty_like(t) for t in fin]
+    moves = torch.empty((b, AGENT_COUNT), dtype=I32, device=rand.device)
+    lib = _ext.lib()
+    _ext.check(lib.pomcpp_fsm_act(
+        _ext.state_view(ins), _ext.fsm_view(fin), _ext.fsm_view(fout),
+        rand.data_ptr(), moves.data_ptr(), b,
+        torch.cuda.current_stream().cuda_stream,
+    ))
+    _ext.LAUNCHES["fsm_act_kernel"] += 1
+    return moves, FsmState(*fout)
+
+
+def fsm_act(cs: CellState, fsm_state, rand, device=None):
+    """One SimpleAgent act for every agent of B boards.
+
+    ``device=None`` runs ``fsm_act_kernel`` on the card; ``device="cpu"``
+    the plain version.
+    """
+    from .fused_step import _to_device
+
+    device = resolve_device(device)
+    cs = _to_device(cs, device)
+    fsm_state = FsmState(*(torch.as_tensor(t).to(device=device, dtype=I32)
+                           for t in fsm_state))
+    rand = torch.as_tensor(rand).to(device=device, dtype=I32)
+    if device.type == "cpu":
+        return fsm_act_plain(cs, fsm_state, rand)
+    return _fsm_act_cuda(cs, fsm_state, rand)

@@ -9,12 +9,16 @@ Counterpart of ``pomcpp_tpu.engine.pallas_step``.  Two entry points:
   (timers already ticked) for later steps.
 * ``rollout_chunk(cs, seed, steps, policy)`` -- ``steps`` self-play steps
   in one launch (``pallas_rollout_chunk``) for the ``harmless`` (moves drawn
-  ``% 5``) and ``random`` (``% 6``, bombs included) policies, with the
-  pipelined auto-reset.  Plain version: ``rollout_chunk_plain``.
+  ``% 5``), ``random`` (``% 6``, bombs included) and ``simple`` (the
+  SimpleAgent FSM of ``engine/fsm.py`` acting for all four agents, its
+  rands drawn ``% 5``) policies, with the pipelined auto-reset.  Plain
+  version: ``rollout_chunk_plain``.
 
 On a CUDA tensor a wrapper launches its kernel (``csrc/fused_step.cu``) and
 adds one to ``_ext.LAUNCHES``; on a CPU tensor it runs the plain version.
-There is no fallback between the two.
+There is no fallback between the two.  The simple chunk is its own
+template instantiation of the chunk kernel and has its own launch count,
+``rollout_chunk_simple_kernel``.
 
 PRNG.  The TPU kernel's in-kernel generator cannot be reproduced off the
 TPU, so the port draws from Philox4x32-10 (Random123's
@@ -53,10 +57,12 @@ from ..core.constants import (
 )
 from ..core.state import I32
 from ..device import resolve_device
+from ..agents.simple import RP_STALE, FsmState
 from .cellular import AGENT_FIELDS, PLANE_FIELDS, CellState, cellular_step
+from .fsm import fsm_act_plain, fsm_inputs
 
 MAX_CHAIN_ROUNDS = 4
-POLICY_MOVES = {"harmless": 5, "random": 6}
+POLICY_MOVES = {"harmless": 5, "random": 6, "simple": 5}
 STREAM_MOVES, STREAM_CELLS, STREAM_FLAGS = 0, 1, 2
 CORNERS = (0, BOARD_SIZE - 1, NUM_CELLS - 1, NUM_CELLS - BOARD_SIZE)
 
@@ -181,23 +187,37 @@ def _merge(fresh: CellState, cs: CellState, done) -> CellState:
     return cs._replace(**merged)
 
 
-def _check_policy(policy: str) -> int:
-    if policy == "simple":
-        raise NotImplementedError(
-            "policy='simple' (the in-kernel SimpleAgent FSM) is the next "
-            "slice of the port"
-        )
+def _check_args(policy: str, moves, fsm_state, inject_slots) -> int:
     if policy not in POLICY_MOVES:
         raise ValueError(f"unknown policy {policy!r}")
+    if (policy == "simple") != (fsm_state is not None):
+        raise ValueError("policy='simple' takes fsm_state (see "
+                         "simple_fsm_state_init); other policies do not")
+    if inject_slots and (policy != "simple" or moves is None):
+        raise ValueError("inject_slots is the mixed-control mode: it needs "
+                         "policy='simple' and moves carrying the override lanes")
+    if any(s not in range(AGENT_COUNT) for s in inject_slots):
+        raise ValueError(f"inject_slots {inject_slots} must name agents 0-3")
     return POLICY_MOVES[policy]
+
+
+def _fresh_fsm(fsm: FsmState, done) -> FsmState:
+    """Reset the done boards' FSM state: ring slots 14, count and moveQueue
+    slots 0 (the head is 0 throughout)."""
+    d = done[:, None]
+    return FsmState(*(
+        torch.where(d, RP_STALE if k < 4 else 0, t).to(I32)
+        for k, t in enumerate(fsm)
+    ))
 
 
 def rollout_chunk_plain(cs: CellState, seed: int, steps: int,
                         policy: str = "random", moves=None,
                         record: bool = False, auto_reset: bool = True,
-                        reset_boards=None):
+                        reset_boards=None, fsm_state=None,
+                        inject_slots=(), prng_rand: bool = False):
     """Plain version of the chunk kernel (see ``rollout_chunk``)."""
-    n_moves = _check_policy(policy)
+    n_moves = _check_args(policy, moves, fsm_state, inject_slots)
     b, dev = cs.board.shape[0], cs.board.device
     if auto_reset:
         terrain = reset_boards if reset_boards is not None else \
@@ -206,26 +226,44 @@ def rollout_chunk_plain(cs: CellState, seed: int, steps: int,
         done = _finished(cs.agent_dead)
     else:
         done = torch.zeros(b, dtype=torch.bool, device=dev)
-    state = cs
+    state, fsm = cs, fsm_state
+    if fsm is not None:
+        fsm = FsmState(*fsm)._replace(rp_head=torch.zeros_like(fsm[4]))
+    override = torch.zeros(AGENT_COUNT, dtype=torch.bool, device=dev)
+    override[list(inject_slots)] = True
     rec_moves, rec_done = [], []
     for t in range(steps):
-        mv = moves[t] if moves is not None else \
+        drawn = moves[t] if moves is not None and not prng_rand else \
             draw_moves(seed, t, b, n_moves, dev)
         done_next = done
         if auto_reset:
             state = _merge(fresh, state, done)
+            if fsm is not None:
+                fsm = _fresh_fsm(fsm, done)
             done_next = _finished(state.agent_dead)
+        if fsm is not None:
+            mv, fsm = fsm_act_plain(state, fsm, drawn)
+            if inject_slots:
+                mv = torch.where(override, moves[t], mv)
+            mv = torch.where(state.agent_dead, 0, mv)
+        else:
+            mv = drawn
         state = cellular_step(state, mv, max_chain_rounds=MAX_CHAIN_ROUNDS)
         if record:
             rec_moves.append(mv.to(I32))
             rec_done.append(_finished(state.agent_dead))
         done = done_next
     if auto_reset:
-        state = _merge(fresh, state, _finished(state.agent_dead))
-    result = _with_counts(state, cs.timestep + steps)
+        last = _finished(state.agent_dead)
+        state = _merge(fresh, state, last)
+        if fsm is not None:
+            fsm = _fresh_fsm(fsm, last)
+    out = (_with_counts(state, cs.timestep + steps),)
     if record:
-        return result, torch.stack(rec_moves), torch.stack(rec_done)
-    return result
+        out += (torch.stack(rec_moves), torch.stack(rec_done))
+    if fsm is not None:
+        out += (fsm,)
+    return out if len(out) > 1 else out[0]
 
 
 # --- Kernel wrappers -------------------------------------------------------------
@@ -276,11 +314,13 @@ def _fused_step_cuda(cs: CellState, moves) -> CellState:
 
 
 def _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record, auto_reset,
-                        reset_boards):
+                        reset_boards, fsm_state, inject_slots, prng_rand):
     ins = _kernel_inputs(cs)
     b, dev = ins[0].shape[0], ins[0].device
     outs = [torch.empty_like(t) for t in ins]
     mv_ptr = rb_ptr = rh_ptr = rm_ptr = rd_ptr = None
+    if prng_rand and not inject_slots:
+        moves = None   # the draws come from Philox; nothing reads moves
     if moves is not None:
         moves = moves.to(device=dev, dtype=I32).contiguous()
         if moves.shape != (steps, b, AGENT_COUNT):
@@ -297,17 +337,32 @@ def _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record, auto_reset,
         rec_done = torch.empty((steps, b), dtype=I32, device=dev)
         rm_ptr, rd_ptr = rec_moves.data_ptr(), rec_done.data_ptr()
     lib = _ext.lib()
-    _ext.check(lib.pomcpp_rollout_chunk(
-        _ext.state_view(ins), _ext.state_view(outs), b, steps, n_moves,
-        seed & _MASK32, (seed >> 32) & _MASK32, mv_ptr, rb_ptr, rh_ptr,
-        int(auto_reset), rm_ptr, rd_ptr,
-        torch.cuda.current_stream().cuda_stream,
-    ))
-    _ext.LAUNCHES["rollout_chunk_kernel"] += 1
-    result = _kernel_outputs(cs, outs, cs.timestep + steps)
+    stream = torch.cuda.current_stream().cuda_stream
+    key0, key1 = seed & _MASK32, (seed >> 32) & _MASK32
+    if fsm_state is None:
+        _ext.check(lib.pomcpp_rollout_chunk(
+            _ext.state_view(ins), _ext.state_view(outs), b, steps, n_moves,
+            key0, key1, mv_ptr, rb_ptr, rh_ptr, int(auto_reset), rm_ptr,
+            rd_ptr, stream,
+        ))
+        _ext.LAUNCHES["rollout_chunk_kernel"] += 1
+    else:
+        fin = fsm_inputs(fsm_state, b)
+        fout = [torch.empty_like(t) for t in fin]
+        inject_mask = sum(1 << s for s in set(inject_slots))
+        _ext.check(lib.pomcpp_rollout_chunk_simple(
+            _ext.state_view(ins), _ext.state_view(outs), _ext.fsm_view(fin),
+            _ext.fsm_view(fout), b, steps, key0, key1, mv_ptr, inject_mask,
+            int(prng_rand), rb_ptr, rh_ptr, int(auto_reset), rm_ptr, rd_ptr,
+            stream,
+        ))
+        _ext.LAUNCHES["rollout_chunk_simple_kernel"] += 1
+    out = (_kernel_outputs(cs, outs, cs.timestep + steps),)
     if record:
-        return result, rec_moves, rec_done != 0
-    return result
+        out += (rec_moves, rec_done != 0)
+    if fsm_state is not None:
+        out += (FsmState(*fout),)
+    return out if len(out) > 1 else out[0]
 
 
 def fused_step(cs: CellState, moves, device=None) -> CellState:
@@ -327,26 +382,39 @@ def fused_step(cs: CellState, moves, device=None) -> CellState:
 
 def rollout_chunk(cs: CellState, seed: int, steps: int, policy: str = "random",
                   moves=None, record: bool = False, auto_reset: bool = True,
-                  reset_boards=None, device=None):
+                  reset_boards=None, device=None, fsm_state=None,
+                  inject_slots=(), prng_rand: bool = False):
     """Run ``steps`` self-play steps of ``policy`` in one kernel launch.
 
-    Counterpart of ``pallas_rollout_chunk`` for ``policy`` in
-    ``("harmless", "random")``.  Each step draws moves (``% 5`` / ``% 6``
-    of a 30-bit Philox draw; dead agents' draws are not zeroed), merges
-    fresh boards into boards that were finished at the head of the previous
-    step (reset latency 2; the first mask comes from the input state), and
-    runs the fused step.  One catch-up merge after the loop leaves every
-    finished board reset.  Replacement terrain is drawn once per chunk per
-    board, so a board that resets twice in one chunk gets the same layout
-    both times.  ``timestep`` advances by ``steps``; ``alive_count`` is
-    recounted from ``agent_dead``.
+    Counterpart of ``pallas_rollout_chunk``.  Each step draws four 30-bit
+    Philox values (``% 5`` for harmless and simple, ``% 6`` for random),
+    merges fresh boards into boards that were finished at the head of the
+    previous step (reset latency 2; the first mask comes from the input
+    state), picks the moves and runs the fused step.  For harmless and
+    random the draws are the moves (dead agents' draws are not zeroed).
+    For ``policy="simple"`` they are the FSM's rands: the FSM acts for all
+    four agents (dead ones included, its ring pushing its own move), the
+    ``inject_slots`` lanes then take ``moves[t]``, and dead agents' moves
+    are zeroed.  One catch-up merge after the loop leaves every finished
+    board reset; a merge also resets that board's FSM state.  Replacement
+    terrain is drawn once per chunk per board, so a board that resets twice
+    in one chunk gets the same layout both times.  ``timestep`` advances by
+    ``steps``; ``alive_count`` is recounted from ``agent_dead``.
+
+    ``policy="simple"`` takes ``fsm_state`` (ten i32[B, 4] arrays, e.g.
+    ``simple_fsm_state_init(B)``) and returns ``(CellState, [moves, done,]
+    fsm_state')``, the new state with ring head 0.  ``inject_slots``
+    (mixed control) makes ``moves`` a per-agent override; the FSM's rands
+    then come from ``moves[t]`` in every lane unless ``prng_rand`` is set,
+    which draws them from Philox.
 
     Test hooks: ``moves`` (i32[steps, B, 4]) replaces the draws,
     ``reset_boards`` (a ``(board, hidden_pow)`` pair of i32[B, 121]) the
     fresh terrain, and ``record=True`` also returns the moves taken
     (i32[steps, B, 4]) and the end-of-step done mask (bool[steps, B]).
     """
-    n_moves = _check_policy(policy)
+    inject_slots = tuple(inject_slots)
+    n_moves = _check_args(policy, moves, fsm_state, inject_slots)
     if reset_boards is not None and not auto_reset:
         raise ValueError("reset_boards is the auto-reset test hook")
     device = resolve_device(device)
@@ -358,8 +426,13 @@ def rollout_chunk(cs: CellState, seed: int, steps: int, policy: str = "random",
             torch.as_tensor(r).to(device=device, dtype=I32)
             for r in reset_boards
         )
+    if fsm_state is not None:
+        fsm_state = FsmState(*(torch.as_tensor(t).to(device=device, dtype=I32)
+                               for t in fsm_state))
     if device.type == "cpu":
         return rollout_chunk_plain(cs, seed, steps, policy, moves, record,
-                                   auto_reset, reset_boards)
+                                   auto_reset, reset_boards, fsm_state,
+                                   inject_slots, prng_rand)
     return _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record,
-                               auto_reset, reset_boards)
+                               auto_reset, reset_boards, fsm_state,
+                               inject_slots, prng_rand)

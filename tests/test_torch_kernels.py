@@ -10,6 +10,11 @@ import torch
 
 from pomcpp_tpu_torch.convert import diff_fields
 from pomcpp_tpu_torch.core.board_gen import random_cell_state
+from pomcpp_tpu_torch.engine.fsm import (
+    fsm_act,
+    fsm_act_plain,
+    simple_fsm_state_init,
+)
 from pomcpp_tpu_torch.engine.fused_step import (
     fused_step,
     fused_step_plain,
@@ -52,3 +57,31 @@ def test_chunk_kernel_matches_plain(cuda, policy):
     p = rollout_chunk_plain(cs, 7, 48, policy, record=True)
     assert not diff_fields(k[0], p[0], skip=())
     assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+
+
+def test_fsm_act_kernel_matches_plain(cuda):
+    cs, gen = _batch(cuda, 512, 3)
+    fk = fp = simple_fsm_state_init(512, cuda)
+    for t in range(30):
+        rand = torch.randint(0, 5, (512, 4), generator=gen, device=cuda,
+                             dtype=torch.int32)
+        mk, fk = fsm_act(cs, fk, rand)
+        mp, fp = fsm_act_plain(cs, fp, rand)
+        assert torch.equal(mk, mp), f"moves, act {t}"
+        assert all(torch.equal(a, b) for a, b in zip(fk, fp)), f"state, act {t}"
+        cs = fused_step_plain(cs, torch.where(cs.agent_dead, 0, mp))
+
+
+@pytest.mark.parametrize("inject_slots,prng_rand", [((), False), ((0,), True)])
+def test_simple_chunk_kernel_matches_plain(cuda, inject_slots, prng_rand):
+    cs, gen = _batch(cuda, 256, 4)
+    fsm = simple_fsm_state_init(256, cuda)
+    moves = torch.randint(0, 6, (48, 256, 4), generator=gen, device=cuda,
+                          dtype=torch.int32) if inject_slots else None
+    kw = dict(record=True, fsm_state=fsm, moves=moves,
+              inject_slots=inject_slots, prng_rand=prng_rand)
+    k = rollout_chunk(cs, 7, 48, "simple", **kw)
+    p = rollout_chunk_plain(cs, 7, 48, "simple", **kw)
+    assert not diff_fields(k[0], p[0], skip=())
+    assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+    assert all(torch.equal(a, b) for a, b in zip(k[3], p[3]))

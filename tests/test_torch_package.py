@@ -17,7 +17,9 @@ from pomcpp_tpu.core.state import empty_state, plant_bomb, put_agent
 from pomcpp_tpu.engine.cellular import from_state
 from pomcpp_tpu_torch.convert import diff_fields, to_numpy, to_torch
 from pomcpp_tpu_torch.core.board_gen import random_cell_state
+from pomcpp_tpu_torch.agents.simple import FsmState
 from pomcpp_tpu_torch.engine import fused_step as fs
+from pomcpp_tpu_torch.engine.fsm import fsm_act, simple_fsm_state_init
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "pomcpp_tpu_torch").rglob("*.py")) + [
@@ -70,6 +72,13 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         fs.fused_step(cs, mv)
     with pytest.raises(RuntimeError, match="CUDA"):
         fs.rollout_chunk(cs, 0, 2, "harmless")
+    fsm = simple_fsm_state_init(2, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fs.rollout_chunk(cs, 0, 2, "simple", fsm_state=fsm)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fsm_act(cs, fsm, mv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simple_fsm_state_init(2)
     with pytest.raises(RuntimeError, match="CUDA"):
         random_cell_state(2, seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -78,10 +87,15 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         fs.fused_step(cs, mv, device="cuda")
 
 
-def test_simple_policy_is_the_next_slice():
+def test_simple_policy_runs_on_the_cpu():
     cs = random_cell_state(2, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        fs.rollout_chunk(cs, 0, 2, "simple", device="cpu")
+    fsm0 = simple_fsm_state_init(2, "cpu")
+    out, fsm = fs.rollout_chunk(cs, 0, 3, "simple", fsm_state=fsm0, device="cpu")
+    assert (out.timestep == 3).all()
+    assert isinstance(fsm, FsmState) and len(fsm) == 10
+    for t in fsm:
+        assert t.shape == (2, 4) and t.dtype == torch.int32
+    assert (fsm.rp_count == 3).all() and (fsm.rp_head == 0).all()
 
 
 def test_convert_round_trip_is_lossless():
