@@ -29,7 +29,31 @@ Phases (any failure exits non-zero before the result line):
               state invariants checked;
 6. timing  -- each kernel at the main path's shapes against its plain
               version on the same inputs (and their agreement there); the
-              plain simple chunk runs 16 of the 256 steps.
+              plain simple chunk runs 16 of the 256 steps;
+7. env     -- the env layer.  Held, every ``EnvState`` field bit for bit
+              between the card and the same call on CPU tensors (the plain
+              versions), 1024 boards x 64 steps with resets, draws and wins:
+              ``env_step_auto_reset_batch(fused=True)`` with injected fresh
+              boards, with the port's own Philox resets and in team mode;
+              ``env_step_auto_reset_batch_fsm(learner_slots=(0,))`` with
+              ``rand_moves`` and with ``seed``.  Then its path at full
+              width, 16384 boards from ``env_reset``: 256 fused env steps,
+              256 mixed-control env steps (three in-kernel SimpleAgents),
+              ``observe_ego`` for all four agents on 64 steps, and 64 steps
+              of ``PommermanEnv(batch_size=1024, fog="ego")`` through
+              numpy; launch counts reset before and read after;
+8. probes  -- the four probe kernels: every pattern in both layouts against
+              its plain version, bit for bit, on seeded inputs at a small
+              loop count (and with ``rows=32``, and on a ragged row count),
+              then ``probes.run_report`` at the scripts' sizes (launch
+              counts reset before and read after), then every pattern's
+              plain version at those sizes, timed and compared again.
+
+``--profile`` builds, runs the env path at full width and then a
+``torch.profiler`` pass over 32 fused env steps, prints the device time by
+kernel and exits with code 4 and no result line.
+``--only=probes,env`` (any of step, fsm, chunk, env, probes) builds, runs
+just those held comparisons and exits with code 4 and no result line.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -45,7 +69,7 @@ import time
 
 BOARDS = 16384          # bench.py's batch
 CHUNK = 256             # bench.py's steps per launch
-MAIN_CHUNKS = 3         # chunks per policy on the main path
+MAIN_CHUNKS = 2         # chunks per policy on the main path
 MAIN_STEPS = 4          # single fused steps on the main path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 memory rate
 OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor peak
@@ -53,6 +77,12 @@ STATE_BYTES = 7 * 121 * 4 + 7 * 4 * 4   # one board's 14 state arrays
 FSM_BYTES = 10 * 4 * 4                  # one board's ten FSM arrays
 MOVE_BYTES = 4 * 4
 PLAIN_SIMPLE_STEPS = 16   # steps of the plain simple chunk in the timing
+ENV_HELD_BOARDS, ENV_HELD_STEPS = 1024, 64
+ENV_STEPS = 256           # fused and mixed-control env steps at full width
+ENV_OBS_STEPS = 64        # steps with observe_ego for all four agents
+GYM_BOARDS, GYM_STEPS = 1024, 64
+PROBE_HELD_ROWS, PROBE_HELD_K = 512, 3
+PROBE_ROWS = 16384        # the scripts' 128 blocks x 128 rows
 
 
 def log(msg: str) -> None:
@@ -161,6 +191,18 @@ def check_invariants(cs) -> None:
     assert ((bc >= 0) & (bc <= mb)).all(), "bomb count out of range"
 
 
+ENGINE_KERNELS = ("fused_step_kernel", "rollout_chunk_kernel",
+                  "rollout_chunk_simple_kernel", "fsm_act_kernel")
+PROBE_KERNELS = ("probe_elem_kernel", "probe_shift_kernel",
+                 "probe_reduce_kernel", "probe_dot_kernel")
+
+
+def expect_launched(launches: dict, names, path: str) -> None:
+    for name in names:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on {path}")
+
+
 class Timer:
     """CUDA-event timing of work on the current stream."""
 
@@ -187,13 +229,19 @@ def register_counts(build_log: str) -> dict:
     names = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
              ("rollout_chunk_kernelILb0", "rollout_chunk_kernel"),
              ("fsm_act_kernel", "fsm_act_kernel"),
-             ("fused_step_kernel", "fused_step_kernel"))
+             ("fused_step_kernel", "fused_step_kernel"),
+             ("probe_elem_kernel", "probe_elem_kernel"),
+             ("probe_shift_kernel", "probe_shift_kernel"),
+             ("probe_reduce_", "probe_reduce_kernel"),
+             ("probe_dot_kernel", "probe_dot_kernel"))
     regs, current = {}, None
     for line in build_log.splitlines():
         if "entry function" in line:
             current = next((n for key, n in names if key in line), None)
         elif "registers" in line and current:
-            regs[current] = int(line.split("Used")[1].split()[0])
+            used = int(line.split("Used")[1].split()[0])
+            # A probe kernel has one entry per pattern and layout: the most.
+            regs[current] = max(used, regs.get(current, 0))
             current = None
     return regs
 
@@ -205,11 +253,20 @@ def phase_build():
                          text=True, check=True).stdout.strip().splitlines()
     log(f"[build] {ver[-1]}")
     t0 = time.perf_counter()
+    _ext.build()            # one nvcc per source file, started together
     _ext.lib()
+    _ext.probes_lib()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    entry = ""
     for line in _ext.build_log.splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
+        if "entry function" in line:
+            entry = line
+        elif "registers" in line and "probe_" not in entry:
+            log(f"[build] {entry.strip()}")
             log(f"[build] {line.strip()}")
+        elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" \
+                not in line:
+            log(f"[build] spills: {entry.strip()} {line.strip()}")
     regs = register_counts(_ext.build_log)
     log(f"[build] registers per thread: {json.dumps(regs)}")
     return regs
@@ -424,9 +481,7 @@ def phase_main(dev):
         f"act kernel ms {[round(t, 3) for t in res['act_ms']]}, "
         f"step kernel ms {[round(t, 3) for t in res['step_ms']]}")
     log(f"[main] launches: {res['launches']}")
-    for name, n in res["launches"].items():
-        if n == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    expect_launched(res["launches"], ENGINE_KERNELS, "the main path")
     return res, inputs
 
 
@@ -494,6 +549,398 @@ def phase_timing(inputs):
     return out
 
 
+def expect_env_equal(what: str, a, b) -> None:
+    """Every EnvState field, the game's 16 fields and the reset key
+    included, bit for bit (``b`` may live on another device)."""
+    import torch
+
+    from pomcpp_tpu_torch.convert import diff_fields
+
+    bad = diff_fields(a.game, b.game, skip=())
+    if bad:
+        raise AssertionError(f"{what}: card and plain differ in game {bad}")
+    for name in ("done", "winner", "is_draw", "key"):
+        if not torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()):
+            raise AssertionError(f"{what}: card and plain differ in {name}")
+
+
+def env_held_start(b: int, seed: int):
+    """CPU EnvState with boards that win at once (one agent left), boards
+    with one agent of each team left, one team left, nobody left, and
+    boards already done; the rest play on."""
+    import torch
+
+    from pomcpp_tpu_torch.env.environment import env_reset
+
+    es = env_reset(seed, b, device="cpu")
+    dead = torch.zeros((b, 4), dtype=torch.bool)
+    n = b // 16
+    dead[:n, 1:] = True
+    dead[n:2 * n, 2:] = True
+    dead[2 * n:3 * n, 0] = dead[2 * n:3 * n, 2] = True
+    dead[3 * n:4 * n] = True
+    done = torch.zeros(b, dtype=torch.bool)
+    done[4 * n:5 * n] = True
+    return es._replace(game=kill(es.game, dead), done=done)
+
+
+def phase_env_held(dev):
+    import torch
+
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
+    from pomcpp_tpu_torch.engine.fused_step import _to_device
+    from pomcpp_tpu_torch.env.environment import (
+        env_step_auto_reset_batch,
+        env_step_auto_reset_batch_fsm,
+    )
+
+    b, steps = ENV_HELD_BOARDS, ENV_HELD_STEPS
+    gen = torch.Generator().manual_seed(41)
+    moves = torch.randint(0, 6, (steps, b, 4), generator=gen, dtype=torch.int32)
+    rands = torch.randint(0, 5, (steps, b, 4), generator=gen, dtype=torch.int32)
+
+    def stats(es, seen):
+        seen["resets"] += int(es.done.sum())
+        return seen
+
+    def note(es_before, es, seen):
+        new = es.done & ~es_before.done
+        seen["wins"] += int((new & ~es.is_draw).sum())
+        seen["draws"] += int((new & es.is_draw).sum())
+
+    for what, kw, inject in (
+        ("fused, injected fresh boards", dict(max_steps=24), True),
+        ("fused, own Philox resets, randomize_positions",
+         dict(max_steps=24, randomize_positions=True), False),
+        ("fused, team mode, own resets", dict(max_steps=30, team_mode=True),
+         False),
+    ):
+        card = plain = env_held_start(b, 3)
+        seen = dict(resets=0, wins=0, draws=0)
+        for t in range(steps):
+            fresh = random_cell_state(b, generator=gen) if inject else None
+            stats(plain, seen)
+            nxt = env_step_auto_reset_batch(
+                plain, moves[t], fused=True, fresh=fresh, device="cpu", **kw)
+            note(plain, nxt, seen)
+            plain = nxt
+            card = env_step_auto_reset_batch(
+                card, moves[t], fused=True,
+                fresh=None if fresh is None else _to_device(fresh, dev),
+                device=dev, **kw)
+            expect_env_equal(f"env {what} t={t}", card, plain)
+        assert min(seen.values()) > 0, f"env {what}: {seen}"
+        log(f"[env] held: {what}: {b} x {steps}: card == plain ({seen})")
+
+    for what, use_rands in (("rand_moves", True), ("seed (Philox rands)", False)):
+        card = plain = env_held_start(b, 4)
+        fsm_c = fsm_p = simple_fsm_state_init(b, "cpu")
+        init = simple_fsm_state_init(b, "cpu")
+        seen = dict(resets=0, wins=0, draws=0)
+        for t in range(steps):
+            stats(plain, seen)
+            was_done = plain.done[:, None]
+            kw = dict(max_steps=24,
+                      rand_moves=rands[t] if use_rands else None)
+            nxt, fsm_p = env_step_auto_reset_batch_fsm(
+                plain, moves[t], fsm_p, (0,), 500 + t, device="cpu", **kw)
+            note(plain, nxt, seen)
+            plain = nxt
+            card, fsm_c = env_step_auto_reset_batch_fsm(
+                card, moves[t], fsm_c, (0,), 500 + t, device=dev, **kw)
+            expect_env_equal(f"env fsm {what} t={t}", card, plain)
+            expect_fsm_equal(f"env fsm {what} t={t}",
+                             [a.cpu() for a in fsm_c], fsm_p)
+            # The caller resets the FSM rows of boards that were done.
+            fsm_p = type(fsm_p)(*(torch.where(was_done, i, a)
+                                  for a, i in zip(fsm_p, init)))
+            fsm_c = type(fsm_c)(*(torch.where(was_done.to(a.device),
+                                              i.to(a.device), a)
+                                  for a, i in zip(fsm_c, init)))
+        assert min(seen.values()) > 0, f"env fsm {what}: {seen}"
+        log(f"[env] held: mixed control, {what}: {b} x {steps}: "
+            f"card == plain ({seen})")
+
+
+class EnvCounts:
+    """Wins, draws and resets of an env loop, summed on the device."""
+
+    def __init__(self, dev):
+        import torch
+
+        self.t = torch.zeros(3, dtype=torch.int64, device=dev)
+
+    def add(self, before, after):
+        import torch
+
+        new = after.done & ~before.done
+        self.t += torch.stack([(new & ~after.is_draw).sum(),
+                               (new & after.is_draw).sum(),
+                               before.done.sum()])
+
+    def read(self) -> dict:
+        return dict(zip(("wins", "draws", "resets"), self.t.tolist()))
+
+
+def check_env(es) -> None:
+    check_invariants(es.game)
+    assert (es.winner[~es.done] == -1).all(), "winner set on a running game"
+    assert not (es.is_draw & ~es.done).any(), "draw flag on a running game"
+    assert ((es.winner >= -1) & (es.winner < 4)).all()
+    assert (es.key[:, 2] >= 1).all()
+
+
+def fused_env_loop(es, gen, steps, counts=None, observe=False,
+                   draw_all=False):
+    """``steps`` fused env steps with moves from ``gen``; host-clock seconds
+    with a device barrier at the end.  ``draw_all`` draws a reset board for
+    every board in every step and hands it in through ``fresh=``, instead
+    of the on-demand draw for the done boards."""
+    import torch
+
+    from pomcpp_tpu_torch.env.environment import (
+        _draw_fresh_game,
+        env_step_auto_reset_batch,
+    )
+    from pomcpp_tpu_torch.env.observation import observe_ego
+
+    b, dev = es.done.shape[0], es.done.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obs = None
+    for _ in range(steps):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, device=dev,
+                           dtype=torch.int32)
+        fresh = _draw_fresh_game(es.key, False) if draw_all else None
+        nxt = env_step_auto_reset_batch(es, mv, fused=True, max_steps=800,
+                                        fresh=fresh)
+        if counts is not None:
+            counts.add(es, nxt)
+        es = nxt
+        if observe:
+            obs = observe_ego(es.game)
+    torch.cuda.synchronize()
+    return es, time.perf_counter() - t0, obs
+
+
+def phase_env_main(dev):
+    """The env layer's path at full width; returns rates and launch counts."""
+    import numpy as np
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
+    from pomcpp_tpu_torch.env import environment as env
+    from pomcpp_tpu_torch.env.gym_adapter import PommermanEnv
+
+    gen = torch.Generator(device=dev).manual_seed(51)
+    es = env.env_reset(7, BOARDS)
+    es, _, _ = fused_env_loop(es, gen, 4)           # warm-up, not counted
+    res = {}
+
+    _ext.reset_launches()
+    counts = EnvCounts(dev)
+    es, sec, _ = fused_env_loop(es, gen, ENV_STEPS, counts)
+    check_env(es)
+    res["fused"] = BOARDS * ENV_STEPS / sec
+    log(f"[env] main: fused env step, {BOARDS} boards x {ENV_STEPS} steps: "
+        f"{res['fused']:.0f} env-steps/s ({sec / ENV_STEPS * 1e3:.3f} ms per "
+        f"step), {counts.read()}")
+
+    fsm = simple_fsm_state_init(BOARDS)
+    init = simple_fsm_state_init(BOARDS)
+    counts = EnvCounts(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(ENV_STEPS):
+        mv = torch.randint(0, 6, (BOARDS, 4), generator=gen, device=dev,
+                           dtype=torch.int32)
+        was_done = es.done[:, None]
+        nxt, fsm = env.env_step_auto_reset_batch_fsm(
+            es, mv, fsm, (0,), 9000 + t, max_steps=800)
+        fsm = type(fsm)(*(torch.where(was_done, i, a)
+                          for a, i in zip(fsm, init)))
+        counts.add(es, nxt)
+        es = nxt
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    check_env(es)
+    assert ((fsm.rp_count >= 0) & (fsm.rp_count <= 4)).all(), "ring count"
+    res["fsm"] = BOARDS * ENV_STEPS / sec
+    log(f"[env] main: mixed-control env step (learner slot 0 random, three "
+        f"in-kernel SimpleAgents), {BOARDS} boards x {ENV_STEPS} steps: "
+        f"{res['fsm']:.0f} env-steps/s ({sec / ENV_STEPS * 1e3:.3f} ms per "
+        f"step), {counts.read()}")
+
+    es, sec, obs = fused_env_loop(es, gen, ENV_OBS_STEPS, observe=True)
+    w = 9
+    assert obs.board.shape == (BOARDS, 4, w * w) and obs.board.dtype == torch.int32
+    centre = obs.board[:, :, (w * w) // 2]
+    ids = torch.arange(4, device=dev) + 10
+    assert ((centre == ids) | es.game.agent_dead).all(), "ego crop off centre"
+    assert ((obs.board >= 0) & (obs.board <= 13)).all()
+    res["observe"] = BOARDS * ENV_OBS_STEPS / sec
+    log(f"[env] main: fused env step + observe_ego for four agents, {BOARDS} "
+        f"boards x {ENV_OBS_STEPS} steps: {res['observe']:.0f} env-steps/s")
+
+    gym = PommermanEnv(batch_size=GYM_BOARDS, fog="ego", max_episode_steps=800)
+    obs, info = gym.reset(seed=3)
+    rng = np.random.RandomState(5)
+    total = np.zeros((GYM_BOARDS, 4), np.float32)
+    ended = 0
+    t0 = time.perf_counter()
+    for _ in range(GYM_STEPS):
+        obs, reward, term, trunc, info = gym.step(
+            rng.randint(0, 6, size=(GYM_BOARDS, 4)))
+        total += reward
+        ended += int(term.sum() + trunc.sum())
+    sec = time.perf_counter() - t0
+    assert len(obs) == 4 and obs[0]["board"].shape == (GYM_BOARDS, 9, 9)
+    assert np.isin(reward, (-1.0, 0.0, 1.0)).all() and np.isfinite(total).all()
+    assert info["alive"].shape == (GYM_BOARDS, 4)
+    check_env(gym._es)
+    res["gym"] = GYM_BOARDS * GYM_STEPS / sec
+    log(f"[env] main: PommermanEnv(batch_size={GYM_BOARDS}, fog='ego') x "
+        f"{GYM_STEPS} steps through numpy: {res['gym']:.0f} env-steps/s, "
+        f"{ended} episodes ended, {int((total < 0).sum())} agents died")
+    res["launches"] = dict(_ext.LAUNCHES)
+    log(f"[env] launches: {res['launches']}")
+    expect_launched(res["launches"],
+                    ("fused_step_kernel", "rollout_chunk_simple_kernel"),
+                    "the env path")
+
+    # The two ways to reset, on the same state: a host read of done.any()
+    # per step against a fresh draw for every board in every step.
+    for always in (False, True, True, False):
+        _, sec, _ = fused_env_loop(es, gen, 32, draw_all=always)
+        log(f"[env] reset draw {'for every board' if always else 'on demand'}"
+            f": {sec / 32 * 1e3:.3f} ms per fused env step")
+        res.setdefault("always_ms" if always else "branch_ms", []).append(
+            sec / 32 * 1e3)
+    res["state"] = es
+    return res
+
+
+def profile_env(es) -> None:
+    """Device time by kernel over 32 fused env steps (``--profile``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=es.done.device).manual_seed(61)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, sec, _ = fused_env_loop(es, gen, 32)
+    # Kernels and device copies only: an operator's event repeats the time
+    # of the kernels it launched.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    log(f"[profile] 32 fused env steps: {sec / 32 * 1e3:.3f} ms per step on "
+        f"the host clock (profiler on), {total / 32e3:.3f} ms of device time "
+        f"per step in {launches / 32:.0f} kernels and copies: device idle "
+        f"{1 - total / 1e6 / sec:.3f} of the time")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
+        log(f"[profile] {e.device_time_total / 32:9.1f} us/step  "
+            f"x{e.count / 32:6.1f}/step  {e.key[:100]}")
+
+
+def probe_outputs_equal(what: str, a, b) -> int:
+    import torch
+
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    worst = 0
+    for k, (x, y) in enumerate(zip(a, b)):
+        if not torch.equal(x, y):
+            n = int((x != y).sum())
+            raise AssertionError(f"{what}: kernel and plain differ in output "
+                                 f"{k} ({n} of {x.numel()} values)")
+        worst = max(worst, int((x.double() - y.double()).abs().max()))
+    return worst
+
+
+def phase_probes_held(dev):
+    """Every pattern, both layouts, against its plain version on seeded
+    inputs at a small loop count."""
+    from pomcpp_tpu_torch import probes
+
+    n = 0
+    for i, p in enumerate(probes.PATTERNS):
+        cases = [(PROBE_HELD_ROWS, 128)]
+        if p.script == "sublane":
+            cases.append((PROBE_HELD_ROWS, 32))
+        if p.op not in probes.TILE_OPS:
+            cases.append((130, 128))       # a ragged last CTA of four warps
+        for rows_total, rows in cases:
+            inputs = probes.pattern_inputs(p, rows_total, dev, seed=100 + i)
+            want = probes.run_pattern(p, inputs, k=PROBE_HELD_K, plain=True,
+                                      rows=rows)
+            for layout in probes.LAYOUTS:
+                got = probes.run_pattern(p, inputs, k=PROBE_HELD_K,
+                                         layout=layout, rows=rows)
+                probe_outputs_equal(
+                    f"probe {probes.label(p)} {layout} rows={rows} of "
+                    f"{rows_total}", got, want)
+                n += 1
+    log(f"[probes] held: {len(probes.PATTERNS)} patterns x 2 layouts, {n} "
+        f"comparisons at K={PROBE_HELD_K}: kernel == plain")
+
+
+def phase_probes_main(dev):
+    """The probes' own path (``probes.run_report``) and, at the same sizes,
+    every pattern's plain version; returns per-pattern rows and launches."""
+    import torch
+
+    from pomcpp_tpu_torch import _ext, probes
+
+    _ext.reset_launches()
+    report = probes.run_report(n_rows=PROBE_ROWS,
+                               out=lambda line: log(f"[probes] {line}"))
+    launches = dict(_ext.LAUNCHES)
+    log(f"[probes] launches: {launches}")
+    expect_launched(launches, PROBE_KERNELS, "the probes' path")
+
+    ms = {(probes.label(p), layout): t for p, layout, t in report}
+    rows = []
+    for p in probes.PATTERNS:
+        inputs = probes.pattern_inputs(p, PROBE_ROWS, dev)
+        with Timer() as tp:
+            want = probes.run_pattern(p, inputs, plain=True)
+        err = 0
+        for layout in probes.LAYOUTS:
+            got = probes.run_pattern(p, inputs, layout=layout)
+            err = max(err, probe_outputs_equal(
+                f"probe {probes.label(p)} {layout} at K={p.k}", got, want))
+        ops, moved = probes.work(p, PROBE_ROWS)
+        t_ops, t_bytes = ops / OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+        library = None
+        if p.op == "dot":
+            x, w = inputs["x"], inputs["w"]
+            torch.matmul(x, w)
+            with Timer() as tl:
+                for _ in range(p.k * 32):
+                    x = torch.matmul(x, w)
+            library = tl.ms()
+        rows.append({
+            "pattern": probes.label(p),
+            "kernel": probes.FAMILY_KERNEL[p.family],
+            "cta_ms": ms[probes.label(p), "cta"],
+            "warp_ms": ms[probes.label(p), "warp"],
+            "plain_ms": tp.ms(), "max_abs_err": err,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library,
+        })
+        log(f"[probes] {probes.label(p):28s} cta {rows[-1]['cta_ms']:9.3f} ms, "
+            f"warp {rows[-1]['warp_ms']:9.3f} ms, plain {tp.ms():9.3f} ms, "
+            f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})"
+            + (f", torch.matmul chain {library:.3f} ms" if library else "")
+            + f": kernel == plain at K={p.k}")
+    torch.cuda.synchronize()
+    return rows, launches
+
+
 def bound_ms(board_steps: int, bytes_moved: int) -> tuple[float, str]:
     """Least time: bytes over HBM rate vs one 32-bit op per state value per
     board-step (7 planes x 121 cells) over the 32-bit peak."""
@@ -519,12 +966,38 @@ def main() -> int:
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     regs = phase_build()
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
+            if a.startswith("--only=")]
+    if only:
+        # A partial run for development: the named held phases, no result.
+        for name in only[0]:
+            {"step": phase_step, "fsm": phase_fsm, "chunk": phase_chunk,
+             "env": phase_env_held, "probes": phase_probes_held}[name](dev)
+        torch.cuda.synchronize()
+        log("partial run: no result line")
+        return 4
+    if "--profile" in sys.argv[1:]:
+        profile_env(phase_env_main(dev)["state"])
+        log("partial run: no result line")
+        return 4
     phase_step(dev)
     phase_fsm(dev)
     phase_chunk(dev)
     main_res, inputs = phase_main(dev)
     timing = phase_timing(inputs)
+    phase_env_held(dev)
+    env_res = phase_env_main(dev)
+    phase_probes_held(dev)
+    probe_rows, probe_launches = phase_probes_main(dev)
     torch.cuda.synchronize()
+
+    paths = {"main": main_res["launches"], "env": env_res["launches"],
+             "probes": probe_launches}
+
+    def launches(name):
+        by_path = {path: counts[name] for path, counts in paths.items()
+                   if counts[name]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     main_ms = {pol: sum(v) / len(v) for pol, v in main_res["chunk_ms"].items()}
     chunk_bound, chunk_by = bound_ms(BOARDS * CHUNK, BOARDS * 2 * STATE_BYTES)
@@ -539,7 +1012,7 @@ def main() -> int:
             "name": "rollout_chunk_kernel", "route": "cuda",
             "source": "pomcpp_tpu_torch/csrc/fused_step.cu",
             "replaces": "pomcpp_tpu/engine/pallas_step.py:840",
-            "launches": main_res["launches"]["rollout_chunk_kernel"],
+            **launches("rollout_chunk_kernel"),
             "max_abs_err": timing["chunk"][2],
             "ms": timing["chunk"][0],
             "main_ms": {p: main_ms[p] for p in ("harmless", "random")},
@@ -553,7 +1026,7 @@ def main() -> int:
             "name": "fused_step_kernel", "route": "cuda",
             "source": "pomcpp_tpu_torch/csrc/fused_step.cu",
             "replaces": "pomcpp_tpu/engine/pallas_step.py:1261",
-            "launches": main_res["launches"]["fused_step_kernel"],
+            **launches("fused_step_kernel"),
             "max_abs_err": timing["step"][2],
             "ms": timing["step"][0],
             "plain_ms": timing["step"][1],
@@ -566,7 +1039,7 @@ def main() -> int:
             "name": "rollout_chunk_simple_kernel", "route": "cuda",
             "source": "pomcpp_tpu_torch/csrc/fused_step.cu",
             "replaces": "pomcpp_tpu/engine/pallas_step.py:840 (policy simple)",
-            "launches": main_res["launches"]["rollout_chunk_simple_kernel"],
+            **launches("rollout_chunk_simple_kernel"),
             "max_abs_err": timing["simple"][2],
             "ms": timing["simple"][0],
             "main_ms": main_ms["simple"],
@@ -581,7 +1054,7 @@ def main() -> int:
             "name": "fsm_act_kernel", "route": "cuda",
             "source": "pomcpp_tpu_torch/csrc/fsm_block.cuh",
             "replaces": "pomcpp_tpu/engine/pallas_fsm.py:357",
-            "launches": main_res["launches"]["fsm_act_kernel"],
+            **launches("fsm_act_kernel"),
             "max_abs_err": timing["fsm"][2],
             "ms": timing["fsm"][0],
             "plain_ms": timing["fsm"][1],
@@ -591,9 +1064,50 @@ def main() -> int:
             "shape": f"{BOARDS} boards x 1 act",
         },
     ]
+    # One row per probe kernel: the sublane script's pattern of the family
+    # stands for it; every pattern's numbers are listed under "patterns".
+    lines = {"probe_elem_kernel": ("sublane.elem", "65 (bench), :94 (bench_big); "
+                                   "scripts/microbench_layout.py:42, "
+                                   "microbench_i16.py:45, "
+                                   "microbench_patterns.py:108, "
+                                   "microbench_reductions.py:118"),
+             "probe_shift_kernel": ("sublane.roll", "65 (_kernel_roll); "
+                                    "scripts/microbench_i16.py:45, "
+                                    "microbench_patterns.py:108, "
+                                    "microbench_reductions.py:118"),
+             "probe_reduce_kernel": ("sublane.sumred", "206 (_kernel_sumred); "
+                                     "scripts/microbench_patterns.py:108, "
+                                     "microbench_reductions.py:118"),
+             "probe_dot_kernel": ("sublane.dot", "134 (_kernel_dot), :206 "
+                                  "(_kernel_dotred)")}
+    for name, (lead, where) in lines.items():
+        mine = [r for r in probe_rows if r["kernel"] == name]
+        head = next(r for r in mine if r["pattern"] == lead)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pomcpp_tpu_torch/csrc/probes.cu",
+            "replaces": f"scripts/microbench_sublane.py:{where}",
+            **launches(name),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": head["cta_ms"], "warp_layout_ms": head["warp_ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "held_in": ["probes"],
+            "shape": f"{lead}: {PROBE_ROWS} rows x 128 lanes, the script's K",
+            "patterns": [{k: v for k, v in r.items() if k != "kernel"}
+                         for r in mine],
+        })
     for row in kernels:
         row["registers"] = regs.get(row["name"])
+    step_ms = timing["step"][0]
+    env_rates = {k: env_res[k] for k in ("fused", "fsm", "observe", "gym")}
     log(f"[main] steps/s: {json.dumps(main_res['steps_per_s'])} on {smi}")
+    log(f"[env] env-steps/s: {json.dumps(env_rates)}; the fused env step "
+        f"reaches {env_res['fused'] / (BOARDS / step_ms * 1e3):.3f} of "
+        f"{BOARDS} boards / {step_ms:.3f} ms step entry point; reset draw on "
+        f"demand {env_res['branch_ms']} ms, for every board "
+        f"{env_res['always_ms']} ms per step, on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/``) on first use.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface under ``build/torch_ext/`` in the checkout, and
-loaded with ``ctypes``; no PyTorch header is compiled, which keeps the build
-to seconds.  The library's name carries a hash of the sources and flags, so
-an edited source is rebuilt.  Nothing here runs at import: the CPU-only
+Each source file is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library of its own with a plain C interface under ``build/torch_ext/`` in
+the checkout, and loaded with ``ctypes``; no PyTorch header is compiled,
+which keeps the build to seconds, and ``build()`` starts every compiler at
+once.  A library's name carries a hash of its sources and flags, so an
+edited source is rebuilt.  Nothing here runs at import: the CPU-only
 install (no ``nvcc``, no card) imports the package freely.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run resets
@@ -21,19 +22,25 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_step.cu",)
-HEADERS = ("step_block.cuh", "fsm_block.cuh")
+# One shared library per source file, so that they build side by side.
+LIBRARIES = {
+    "kernels": ("fused_step.cu", ("step_block.cuh", "fsm_block.cuh")),
+    "probes": ("probes.cu", ()),
+}
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ext"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNELS = ("fused_step_kernel", "rollout_chunk_kernel",
-           "rollout_chunk_simple_kernel", "fsm_act_kernel")
+           "rollout_chunk_simple_kernel", "fsm_act_kernel",
+           "probe_elem_kernel", "probe_shift_kernel", "probe_reduce_kernel",
+           "probe_dot_kernel")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
-_lib = None
+_libs: dict = {}
+_bound: set = set()
 build_log = ""
 
 
@@ -52,25 +59,46 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile the kernels if this exact source set has no library yet."""
-    global build_log
+def _target(name: str) -> Path:
+    source, headers = LIBRARIES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update((CSRC / name).read_bytes())
-    out = BUILD_DIR / f"libpomcpp_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    for f in (source,) + headers:
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"libpomcpp_{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(names=tuple(LIBRARIES)) -> dict:
+    """Compile the named libraries that have no file for their exact
+    sources yet, all ``nvcc`` runs started together; returns their paths."""
+    global build_log
+    outs = {name: _target(name) for name in names}
+    procs = []
+    for name, out in outs.items():
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / LIBRARIES[name][0])]
+        procs.append((name, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, tmp, out, proc in procs:
+        log = proc.communicate()[0]
+        build_log += log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name} ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
+def _load(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        _libs[name] = ctypes.CDLL(str(build((name,))[name]))
+    return _libs[name]
 
 
 class StateView(ctypes.Structure):
@@ -86,10 +114,9 @@ class FsmView(ctypes.Structure):
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
+    """The loaded engine kernels (``fused_step.cu``), built on first call."""
+    handle = _load("kernels")
+    if "kernels" not in _bound:
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         handle.pomcpp_fused_step.argtypes = [StateView, StateView, p, i, p]
         handle.pomcpp_fused_step.restype = i
@@ -107,14 +134,34 @@ def lib() -> ctypes.CDLL:
         handle.pomcpp_fsm_act.restype = i
         handle.pomcpp_error_string.argtypes = [i]
         handle.pomcpp_error_string.restype = ctypes.c_char_p
-        _lib = handle
-    return _lib
+        _bound.add("kernels")
+    return handle
 
 
-def check(err: int) -> None:
+def probes_lib() -> ctypes.CDLL:
+    """The loaded probe kernels (``probes.cu``), built on first call."""
+    handle = _load("probes")
+    if "probes" not in _bound:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        handle.pomcpp_probe_elem.argtypes = [i, i, i, p, p, i, i, i, i, i, p]
+        handle.pomcpp_probe_shift.argtypes = [i, i, i, p, p, p, p, i, i, i, i,
+                                              p]
+        handle.pomcpp_probe_reduce.argtypes = [i, i, p, p, p, p, i, i, i, i, p]
+        handle.pomcpp_probe_dot.argtypes = [i, i, p, p, p, i, i, i, i, p]
+        for fn in (handle.pomcpp_probe_elem, handle.pomcpp_probe_shift,
+                   handle.pomcpp_probe_reduce, handle.pomcpp_probe_dot):
+            fn.restype = i
+        handle.pomcpp_probes_error_string.argtypes = [i]
+        handle.pomcpp_probes_error_string.restype = ctypes.c_char_p
+        _bound.add("probes")
+    return handle
+
+
+def check(err: int, probes: bool = False) -> None:
     """Raise if a launcher reported a CUDA error."""
     if err != 0:
-        msg = lib().pomcpp_error_string(err).decode()
+        msg = (probes_lib().pomcpp_probes_error_string(err) if probes
+               else lib().pomcpp_error_string(err)).decode()
         raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
 
 

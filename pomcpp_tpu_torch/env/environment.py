@@ -1,0 +1,410 @@
+"""Game orchestration over batches of boards.
+
+Counterpart of ``pomcpp_tpu.env.environment``.  The environment is a
+NamedTuple of tensors, ``EnvState``, and plain functions over it; every
+function takes a batch (leading axis B on every field) and is the batched
+form of its JAX counterpart -- there is no ``vmap`` here:
+
+* ``env_reset(seed, b)``            -- B fresh games
+* ``env_step(es, moves)``           -- one step + terminal detection; a
+                                       finished game is frozen
+* ``env_step_auto_reset(es, moves)``-- same, but a finished game restarts
+                                       on its next step
+* ``env_step_auto_reset_batch(es, moves, fused=True)`` -- the same step
+  through the port's fused step kernel (``engine.fused_step.fused_step``)
+* ``env_step_auto_reset_batch_fsm(...)`` -- mixed control: SimpleAgent
+  opponents act inside the chunk kernel (``rollout_chunk`` with
+  ``steps=1``), learner lanes are injected
+* ``act_all`` / ``rollout`` / ``rollout_stateful`` -- policy loops
+
+Only the plane-encoded ``CellState`` is ported; the queue-encoded exact
+engine (``engine="exact"``) is not, and asking for it raises.
+
+Reset stream.  JAX keys cannot be reproduced, so ``EnvState.key`` is the
+port's own reset stream: i64[B, 3] holding, per board, ``(seed, board id,
+resets drawn so far)``.  A reset draws its board from Philox4x32-10
+(``engine.fused_step.philox4x32``) keyed by ``seed``, at the counter words
+``(board id, resets drawn so far, stream, cell // 4)`` with stream
+``STREAM_ENV_CELLS = 3`` for the cell classes, ``STREAM_ENV_FLAGS = 4`` for
+the powerup flags and ``STREAM_ENV_SEATS = 5`` (fourth word 0) for the seat
+permutation of ``randomize_positions``; the reset then advances the third
+key column by one.  The chunk kernel's streams are 0, 1 and 2 in the same
+counter word (``STREAM_MOVES/CELLS/FLAGS``), so an env reset never repeats
+a chunk's draws even under the same seed.  A reset therefore needs no host
+generator; it is a pure function of the key row.  Cell classes and flags
+are read from the 30-bit draws exactly as ``fresh_terrain`` reads them
+(same distribution as ``random_board_fast``).
+
+Parity with the JAX package goes through ``fresh=``: a ``CellState`` batch
+that replaces the port's own reset draw (the test computes the JAX side's
+fresh games from its keys and injects them), and through ``rand_moves=`` of
+the mixed-control step.
+
+Policies.  A policy is ``policy(generator, game, agent_ids) -> moves``:
+``generator`` a ``torch.Generator`` (or whatever source of randomness the
+policy expects; it is passed through untouched), ``game`` the ``CellState``
+batch, ``agent_ids`` an i32 tensor [A]; the result is i32[B, A].  See
+``agents.basic``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core.board_gen import put_agents_in_corners_perm
+from ..core.constants import AGENT_COUNT, C_PASSAGE, C_RIGID, C_WOOD, NUM_CELLS
+from ..core.state import I32, put_agents_in_corners
+from ..device import resolve_device
+from ..engine.cellular import CellState, cellular_step, empty_cell_state
+from ..engine.fused_step import _draw30, fused_step, philox4x32, rollout_chunk
+
+STREAM_ENV_CELLS, STREAM_ENV_FLAGS, STREAM_ENV_SEATS = 3, 4, 5
+
+# Classic Pommerman 2v2 teams: agents {0, 2} vs {1, 3}.
+TEAM_OF = (0, 1, 0, 1)
+
+
+class EnvState(NamedTuple):
+    game: CellState
+    done: torch.Tensor     # bool[B]
+    winner: torch.Tensor   # i32[B], agent id (team id in team mode) or -1
+    is_draw: torch.Tensor  # bool[B]
+    key: torch.Tensor      # i64[B, 3]: seed, board id, resets drawn so far
+
+
+def _require_cellular(engine: str) -> None:
+    if engine != "cellular":
+        raise NotImplementedError(
+            f"engine={engine!r}: only the plane-encoded CellState "
+            "(engine='cellular') is ported; the queue-encoded exact engine "
+            "is not part of the port yet"
+        )
+
+
+def _env_to_device(es: EnvState, device) -> EnvState:
+    return EnvState(CellState(*(t.to(device) for t in es.game)),
+                    *(t.to(device) for t in es[1:]))
+
+
+def _where_env(mask, a: EnvState, b: EnvState) -> EnvState:
+    """Per board: ``a`` where ``mask`` else ``b``, over every field."""
+    def pick(x, y):
+        return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
+
+    return EnvState(CellState(*map(pick, a.game, b.game)),
+                    *map(pick, a[1:], b[1:]))
+
+
+def _draw_fresh_game(key, randomize_positions: bool) -> CellState:
+    """The reset boards of the key rows ``key`` (see the module docstring)."""
+    n, dev = key.shape[0], key.device
+    seed, board_id, count = (key[:, k, None, None] for k in range(3))
+    streams = (STREAM_ENV_CELLS, STREAM_ENV_FLAGS) + \
+        ((STREAM_ENV_SEATS,) if randomize_positions else ())
+    stream = torch.tensor(streams, dtype=torch.int64, device=dev)[None, :, None]
+    group = torch.arange((NUM_CELLS + 3) // 4, dtype=torch.int64,
+                         device=dev)[None, None, :]
+    words = torch.stack(philox4x32(board_id, count, stream, group, seed), 3)
+    draws = _draw30(words.reshape(n, len(streams), -1)[:, :2, :NUM_CELLS])
+    tmp, flags = draws[:, 0] % 7, draws[:, 1]
+    board = torch.full_like(tmp, C_PASSAGE)
+    board = torch.where(tmp == 1, C_RIGID, board)
+    board = torch.where(tmp == 2, C_WOOD, board)
+    hidden = torch.where(
+        (board == C_WOOD) & ((flags & 1) == 0), (flags >> 1) % 4 + 1, 0
+    )
+    cs = empty_cell_state(n, dev)._replace(board=board, hidden_pow=hidden)
+    if not randomize_positions:
+        return put_agents_in_corners(cs)
+    # Four 32-bit words ranked; the seat index in the low bits breaks ties.
+    seat = torch.arange(AGENT_COUNT, dtype=torch.int64, device=dev)
+    perm = ((words[:, 2, 0, :] & ~3) | seat).argsort(1)
+    return put_agents_in_corners_perm(cs, perm)
+
+
+def _fresh(key, randomize_positions: bool = False, game=None) -> EnvState:
+    """Fresh games for the key rows; ``game`` replaces the port's draw."""
+    n, dev = key.shape[0], key.device
+    if game is None:
+        game = _draw_fresh_game(key, randomize_positions)
+    step = torch.tensor([0, 0, 1], dtype=torch.int64, device=dev)
+    return EnvState(
+        game=game,
+        done=torch.zeros(n, dtype=torch.bool, device=dev),
+        winner=torch.full((n,), -1, dtype=I32, device=dev),
+        is_draw=torch.zeros(n, dtype=torch.bool, device=dev),
+        key=key + step,
+    )
+
+
+def env_reset(seed: int, b: int, randomize_positions: bool = False,
+              engine: str = "cellular", device=None) -> EnvState:
+    """``b`` fresh games on ``device`` (None: the card).
+
+    ``randomize_positions`` draws which agent sits in which corner (the
+    reference ``MakeGame``'s optional shuffle); off by default.
+    """
+    _require_cellular(engine)
+    if not 0 <= seed < 2 ** 63:
+        raise ValueError("seed must be in [0, 2^63)")
+    device = resolve_device(device)
+    key = torch.zeros((b, 3), dtype=torch.int64, device=device)
+    key[:, 0] = seed
+    key[:, 1] = torch.arange(b, device=device)
+    return _fresh(key, randomize_positions)
+
+
+def _detect_terminal(es: EnvState, team_mode: bool = False,
+                     max_steps: int = 0) -> EnvState:
+    """Win/draw latching after a step.
+
+    FFA: the last agent standing wins; nobody alive is a draw.  Team mode:
+    a team wins when every opponent is dead, ``winner`` then holds the team
+    id (0 or 1); both teams wiped out is a draw.  ``max_steps > 0`` also
+    ends the game as a draw once ``timestep`` reaches it.
+    """
+    dead = es.game.agent_dead
+    if team_mode:
+        team = torch.tensor(TEAM_OF, device=dead.device)
+        t0_alive = (~dead & (team == 0)).any(1)
+        t1_alive = (~dead & (team == 1)).any(1)
+        won = t0_alive ^ t1_alive
+        survivor = torch.where(t0_alive, 0, 1).to(I32)
+        draw = ~t0_alive & ~t1_alive
+    else:
+        won = es.game.alive_count == 1
+        # First alive agent; with exactly one survivor any rule agrees.
+        survivor = (~dead).to(I32).argmax(1).to(I32)
+        draw = es.game.alive_count == 0
+    if max_steps:
+        draw = draw | (~won & (es.game.timestep >= max_steps))
+    return es._replace(
+        done=es.done | won | draw,
+        winner=torch.where(won & ~es.done, survivor, es.winner),
+        is_draw=es.is_draw | (draw & ~es.done),
+    )
+
+
+def _prepare(es: EnvState, moves, device):
+    device = resolve_device(device)
+    moves = torch.as_tensor(moves).to(device=device, dtype=I32)
+    return _env_to_device(es, device), moves, device
+
+
+def env_step(es: EnvState, moves, team_mode: bool = False,
+             max_steps: int = 0, device=None) -> EnvState:
+    """One simultaneous step (``cellular_step``) + timestep advance +
+    terminal detection.  A finished game is frozen: stepping it is a no-op.
+    """
+    es, moves, _ = _prepare(es, moves, device)
+    game = cellular_step(es.game, moves)
+    game = game._replace(timestep=game.timestep + 1)
+    nxt = _detect_terminal(es._replace(game=game), team_mode, max_steps)
+    return _where_env(es.done, es, nxt)
+
+
+def _merge_done_and_reset(es: EnvState, game: CellState, team_mode: bool,
+                          max_steps: int, randomize_positions: bool = False,
+                          fresh=None) -> EnvState:
+    """Done-latch and auto-reset merge shared by every auto-reset path.
+
+    ``game`` is the stepped batch, timestep advanced.  Both selections use
+    ``es.done`` of *before* the step: a board that finishes now latches its
+    result and keeps its terminal state for one step; a board that was
+    already done is replaced by a fresh game keyed from ``es.key``.
+    ``fresh`` (test hook) is a ``CellState`` batch taken instead of the
+    port's own reset draw.
+
+    Without ``fresh`` the reset boards are drawn on demand, for the done
+    boards only, which costs one device-to-host read per step.  Drawing for
+    every board in every step (what the jitted JAX code does; here
+    ``fresh=_draw_fresh_game(es.key, ...)``) gives the same result with no
+    host read and was no faster on the card (PERF.md).
+    """
+    nxt = _detect_terminal(es._replace(game=game), team_mode, max_steps)
+    if fresh is not None:
+        return _where_env(es.done, _fresh(es.key, randomize_positions, fresh),
+                          nxt)
+    idx = es.done.nonzero()[:, 0]          # host read: which boards reset
+    if idx.numel() == 0:
+        return nxt
+    new = _fresh(es.key[idx], randomize_positions)
+
+    def put(x, y):
+        return x.index_copy(0, idx, y)
+
+    return EnvState(CellState(*map(put, nxt.game, new.game)),
+                    *map(put, nxt[1:], new[1:]))
+
+
+def env_step_auto_reset(es: EnvState, moves, team_mode: bool = False,
+                        max_steps: int = 0, randomize_positions: bool = False,
+                        fresh=None, device=None) -> EnvState:
+    """``env_step``, but a game that finished restarts on its next step.
+
+    The episode outcome is readable for exactly one step (the step that set
+    ``done``).  ``randomize_positions`` applies to the restarted games.
+    """
+    es, moves, _ = _prepare(es, moves, device)
+    game = cellular_step(es.game, moves)
+    game = game._replace(timestep=game.timestep + 1)
+    return _merge_done_and_reset(es, game, team_mode, max_steps,
+                                 randomize_positions, fresh)
+
+
+def env_step_auto_reset_batch(es: EnvState, moves, team_mode: bool = False,
+                              fused: bool = False, max_steps: int = 0,
+                              randomize_positions: bool = False, fresh=None,
+                              device=None) -> EnvState:
+    """Auto-reset step of the whole batch.
+
+    ``fused=True`` steps through ``fused_step`` -- on the card one launch of
+    ``fused_step_kernel``; explosion chains are capped at 4 rounds per step
+    there, as in the JAX package's fused path.  ``fused=False`` steps
+    through ``cellular_step`` (chains uncapped) and equals
+    ``env_step_auto_reset``.
+    """
+    if not fused:
+        return env_step_auto_reset(es, moves, team_mode, max_steps,
+                                   randomize_positions, fresh, device)
+    es, moves, device = _prepare(es, moves, device)
+    game = fused_step(es.game, moves, device=device)
+    game = game._replace(timestep=game.timestep + 1)
+    return _merge_done_and_reset(es, game, team_mode, max_steps,
+                                 randomize_positions, fresh)
+
+
+def env_step_auto_reset_batch_fsm(es: EnvState, learner_moves, fsm_state,
+                                  learner_slots, seed: int,
+                                  team_mode: bool = False, max_steps: int = 0,
+                                  rand_moves=None,
+                                  randomize_positions: bool = False,
+                                  fresh=None, device=None):
+    """Mixed-control step: SimpleAgent opponents inside the chunk kernel,
+    learner moves injected; one launch for the whole batch.
+
+    Same env semantics as ``env_step_auto_reset_batch``, but the lanes not
+    in ``learner_slots`` act through the FSM of ``engine.fsm`` inside
+    ``rollout_chunk(steps=1, policy="simple")`` -- on the card one launch of
+    the simple chunk kernel.  ``fsm_state`` is the ten-array state
+    (``simple_fsm_state_init``); ``seed`` keys the Philox draws of the FSM's
+    rands and must differ from step to step.  ``rand_moves`` (i32[B, 4],
+    tests) supplies those draws instead; the learner lanes of the merged
+    input are the override moves either way.  Returns ``(EnvState,
+    fsm_state')``; the caller owns resetting the ``fsm_state`` rows of
+    finished boards.
+    """
+    es, learner_moves, device = _prepare(es, learner_moves, device)
+    slots = tuple(learner_slots)
+    mv = learner_moves
+    if rand_moves is not None:
+        rand_moves = torch.as_tensor(rand_moves).to(device=device, dtype=I32)
+        lane = torch.zeros(AGENT_COUNT, dtype=torch.bool, device=device)
+        lane[list(slots)] = True
+        mv = torch.where(lane, learner_moves, rand_moves)
+    game, fsm2 = rollout_chunk(
+        es.game, seed, 1, "simple", moves=mv[None], auto_reset=False,
+        fsm_state=fsm_state, inject_slots=slots,
+        prng_rand=rand_moves is None, device=device,
+    )
+    return _merge_done_and_reset(es, game, team_mode, max_steps,
+                                 randomize_positions, fresh), fsm2
+
+
+def act_all(policy, generator, game: CellState) -> torch.Tensor:
+    """One policy for all four agents of every board -> i32[B, 4] moves.
+
+    Dead agents get IDLE (the step never reads a dead agent's move).
+    """
+    ids = torch.arange(AGENT_COUNT, dtype=I32, device=game.board.device)
+    moves = policy(generator, game, ids)
+    return torch.where(game.agent_dead, 0, moves).to(I32)
+
+
+def _stepper(auto_reset: bool, team_mode: bool, max_steps: int, device):
+    base = env_step_auto_reset if auto_reset else env_step
+
+    def stepper(es, moves):
+        return base(es, moves, team_mode=team_mode, max_steps=max_steps,
+                    device=device)
+
+    return stepper
+
+
+def _stack_metrics(rows):
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def _metrics(es: EnvState):
+    return {"done": es.done, "winner": es.winner,
+            "alive": es.game.alive_count}
+
+
+def rollout(es: EnvState, policy, n_steps: int, auto_reset: bool = True,
+            team_mode: bool = False, max_steps: int = 0, generator=None,
+            device=None):
+    """Run ``n_steps`` with ``policy`` controlling all agents.
+
+    Returns ``(final_env, metrics)``; ``metrics`` holds ``done``,
+    ``winner`` and ``alive`` stacked over time, [n_steps, B] each.
+    ``generator`` is handed to the policy (see the module docstring).
+    """
+    device = resolve_device(device)
+    es = _env_to_device(es, device)
+    stepper = _stepper(auto_reset, team_mode, max_steps, device)
+    rows = []
+    for _ in range(n_steps):
+        es = stepper(es, act_all(policy, generator, es.game))
+        rows.append(_metrics(es))
+    return es, _stack_metrics(rows)
+
+
+def _map_state(fn, *states):
+    """Apply ``fn`` leaf-wise over policy states: a tensor, or a (named)
+    tuple of policy states."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*states)
+    mapped = [_map_state(fn, *leaves) for leaves in zip(*states)]
+    return type(first)(*mapped) if hasattr(first, "_fields") else \
+        type(first)(mapped)
+
+
+def rollout_stateful(es: EnvState, act_fn, policy_state, n_steps: int,
+                     auto_reset: bool = True, reset_policy_state=None,
+                     joint: bool = False, team_mode: bool = False,
+                     max_steps: int = 0, generator=None, device=None):
+    """Rollout for stateful policies (e.g. the SimpleAgent FSM).
+
+    ``act_fn(generator, game, agent_ids, pstate) -> (moves, pstate')`` with
+    ``moves`` i32[B, 4]; ``policy_state`` is a tensor or a (named) tuple of
+    tensors with leading axis B.  ``joint=True`` drops ``agent_ids`` from
+    the call.  When ``auto_reset`` is on and ``reset_policy_state`` is
+    given, the state of a board that was done before the step is replaced
+    by it.  Returns ``(final_env, policy_state, metrics)``.
+    """
+    device = resolve_device(device)
+    es = _env_to_device(es, device)
+    stepper = _stepper(auto_reset, team_mode, max_steps, device)
+    ids = torch.arange(AGENT_COUNT, dtype=I32, device=device)
+    rows = []
+    for _ in range(n_steps):
+        if joint:
+            moves, ps_new = act_fn(generator, es.game, policy_state)
+        else:
+            moves, ps_new = act_fn(generator, es.game, ids, policy_state)
+        moves = torch.where(es.game.agent_dead, 0, moves).to(I32)
+        if auto_reset and reset_policy_state is not None:
+            done = es.done
+
+            def pick(f, s):
+                return torch.where(
+                    done.reshape((-1,) + (1,) * (s.dim() - 1)), f, s)
+
+            ps_new = _map_state(pick, reset_policy_state, ps_new)
+        policy_state = ps_new
+        es = stepper(es, moves)
+        rows.append(_metrics(es))
+    return es, policy_state, _stack_metrics(rows)

@@ -21,6 +21,8 @@ from pomcpp_tpu_torch.engine.fused_step import (
     rollout_chunk,
     rollout_chunk_plain,
 )
+from pomcpp_tpu_torch import probes
+from pomcpp_tpu_torch.env import environment as env
 
 pytestmark = pytest.mark.gpu
 
@@ -85,3 +87,54 @@ def test_simple_chunk_kernel_matches_plain(cuda, inject_slots, prng_rand):
     assert not diff_fields(k[0], p[0], skip=())
     assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
     assert all(torch.equal(a, b) for a, b in zip(k[3], p[3]))
+
+
+def _same_env(card, plain, what):
+    assert not diff_fields(card.game, plain.game, skip=()), what
+    for name in ("done", "winner", "is_draw", "key"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(plain, name)), \
+            f"{what}: {name}"
+
+
+@pytest.mark.parametrize("team_mode", [False, True])
+def test_fused_env_step_on_the_card_matches_cpu(cuda, team_mode):
+    """``env_step_auto_reset_batch(fused=True)``: the step kernel and the
+    merge on the card against the plain versions on CPU tensors, the
+    port's own Philox resets on both sides."""
+    b = 256
+    card = plain = env.env_reset(5, b, randomize_positions=True, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    for t in range(40):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
+        kw = dict(fused=True, max_steps=12, team_mode=team_mode,
+                  randomize_positions=True)
+        card = env.env_step_auto_reset_batch(card, mv, **kw)
+        plain = env.env_step_auto_reset_batch(plain, mv, device="cpu", **kw)
+        _same_env(card, plain, f"step {t}")
+    assert card.done.is_cuda and int(plain.key[:, 2].min()) >= 3
+
+
+def test_fsm_env_step_on_the_card_matches_cpu(cuda):
+    b = 128
+    card = plain = env.env_reset(8, b, device="cpu")
+    fsm_c = fsm_p = simple_fsm_state_init(b, "cpu")
+    gen = torch.Generator().manual_seed(9)
+    for t in range(24):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
+        card, fsm_c = env.env_step_auto_reset_batch_fsm(
+            card, mv, fsm_c, (0,), 70 + t, max_steps=10)
+        plain, fsm_p = env.env_step_auto_reset_batch_fsm(
+            plain, mv, fsm_p, (0,), 70 + t, max_steps=10, device="cpu")
+        _same_env(card, plain, f"step {t}")
+        assert all(torch.equal(a.cpu(), c) for a, c in zip(fsm_c, fsm_p))
+
+
+@pytest.mark.parametrize("layout", sorted(probes.LAYOUTS))
+@pytest.mark.parametrize("p", probes.PATTERNS, ids=probes.label)
+def test_probe_kernel_matches_plain(cuda, p, layout):
+    inputs = probes.pattern_inputs(p, 256, cuda, seed=3)
+    got = probes.run_pattern(p, inputs, k=4, layout=layout)
+    want = probes.run_pattern(p, inputs, k=4, plain=True)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
