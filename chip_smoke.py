@@ -7,7 +7,9 @@ plain versions.
 Phases (any failure exits non-zero before the result line):
 
 1. build   -- compile ``pomcpp_tpu_torch/csrc`` with nvcc for sm_90a and
-              print each kernel's ``-Xptxas -v`` register count;
+              print each kernel's ``-Xptxas -v`` registers, stack, spill and
+              shared-memory bytes, and the chunk kernel's resident boards
+              per SM as the CUDA runtime reports them;
 2. step    -- the fused step kernel vs ``fused_step_plain``, bit for bit:
               every 6^4 joint move on a kick-heavy state, and 4096 boards
               with mixed kick stepped 50 steps with host-drawn moves;
@@ -19,7 +21,11 @@ Phases (any failure exits non-zero before the result line):
               moves, injected reset boards and record=True, once with
               in-kernel Philox draws and auto-reset; simple with injected
               rands + reset boards + record, with Philox draws + auto-reset,
-              and with ``inject_slots=(0,)`` + ``prng_rand=True``;
+              and with ``inject_slots=(0,)`` + ``prng_rand=True``; then
+              every 6^4 joint move on a kick-heavy state (moving bombs) and
+              on a 2x2 ring of agents (moves without a movement root), and
+              ragged and tiny batches (1021, 5, 3 and 1 boards) of all three
+              policies with Philox draws and auto-reset;
 5. main    -- the main path at full width: 16384 boards from
               ``random_cell_state`` on the card, 256-step chunks of harmless,
               random, then simple self-play (a few chunks each, the FSM
@@ -29,7 +35,9 @@ Phases (any failure exits non-zero before the result line):
               state invariants checked;
 6. timing  -- each kernel at the main path's shapes against its plain
               version on the same inputs (and their agreement there); the
-              plain simple chunk runs 16 of the 256 steps;
+              plain simple chunk runs 16 of the 256 steps; the chunk
+              kernel's times are printed beside those of the layout it
+              replaced;
 7. env     -- the env layer.  Held, every ``EnvState`` field bit for bit
               between the card and the same call on CPU tensors (the plain
               versions), 1024 boards x 64 steps with resets, draws and wins:
@@ -51,7 +59,11 @@ Phases (any failure exits non-zero before the result line):
 
 ``--profile`` builds, runs the env path at full width and then a
 ``torch.profiler`` pass over 32 fused env steps, prints the device time by
-kernel and exits with code 4 and no result line.
+kernel; then it builds the chunk kernel with its phase clocks
+(``-DPOMCPP_PHASE_CLOCKS``), runs two chunks of each policy at the main
+path's size, holds their result to the plain build's and prints the share of
+each phase of a step in the summed warp cycles.  It exits with code 4 and
+no result line.
 ``--only=probes,env`` (any of step, fsm, chunk, env, probes) builds, runs
 just those held comparisons and exits with code 4 and no result line.
 
@@ -83,6 +95,9 @@ ENV_OBS_STEPS = 64        # steps with observe_ego for all four agents
 GYM_BOARDS, GYM_STEPS = 1024, 64
 PROBE_HELD_ROWS, PROBE_HELD_K = 512, 3
 PROBE_ROWS = 16384        # the scripts' 128 blocks x 128 rows
+# Chunk kernel ms at BOARDS x CHUNK in the layout of one board per CTA, as
+# PERF.md records them (an NVIDIA H100 80GB HBM3 at 700.00 W).
+CTA_LAYOUT_MS = {"harmless": 52.25, "random": 78.629, "simple": 130.949}
 
 
 def log(msg: str) -> None:
@@ -224,26 +239,60 @@ class Timer:
         return self.start.elapsed_time(self.end)
 
 
-def register_counts(build_log: str) -> dict:
-    """Registers per thread of each kernel, from nvcc's -Xptxas -v log."""
-    names = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
-             ("rollout_chunk_kernelILb0", "rollout_chunk_kernel"),
-             ("fsm_act_kernel", "fsm_act_kernel"),
-             ("fused_step_kernel", "fused_step_kernel"),
-             ("probe_elem_kernel", "probe_elem_kernel"),
-             ("probe_shift_kernel", "probe_shift_kernel"),
-             ("probe_reduce_", "probe_reduce_kernel"),
-             ("probe_dot_kernel", "probe_dot_kernel"))
-    regs, current = {}, None
+KERNEL_ENTRIES = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
+                  ("rollout_chunk_kernelILb0", "rollout_chunk_kernel"),
+                  ("fsm_act_kernel", "fsm_act_kernel"),
+                  ("fused_step_kernel", "fused_step_kernel"),
+                  ("probe_elem_kernel", "probe_elem_kernel"),
+                  ("probe_shift_kernel", "probe_shift_kernel"),
+                  ("probe_reduce_", "probe_reduce_kernel"),
+                  ("probe_dot_kernel", "probe_dot_kernel"))
+
+
+def kernel_resources(build_log: str) -> dict:
+    """Per kernel, from nvcc's -Xptxas -v log: registers per thread, bytes of
+    stack frame, of spill stores and loads, and of static shared memory.  A
+    probe kernel has one entry per pattern and layout: the most of each."""
+    res, current = {}, None
     for line in build_log.splitlines():
         if "entry function" in line:
-            current = next((n for key, n in names if key in line), None)
-        elif "registers" in line and current:
-            used = int(line.split("Used")[1].split()[0])
-            # A probe kernel has one entry per pattern and layout: the most.
-            regs[current] = max(used, regs.get(current, 0))
+            current = next((n for key, n in KERNEL_ENTRIES if key in line), None)
+            continue
+        if not current:
+            continue
+        row = res.setdefault(current, dict(registers=0, stack_bytes=0,
+                                           spill_store_bytes=0,
+                                           spill_load_bytes=0, smem_bytes=0))
+
+        def most(key, text, before):
+            row[key] = max(row[key], int(text.split(before)[0].split()[-1]))
+
+        if "bytes stack frame" in line:
+            most("stack_bytes", line, "bytes stack frame")
+            most("spill_store_bytes", line, "bytes spill stores")
+            most("spill_load_bytes", line, "bytes spill loads")
+        elif "registers" in line:
+            row["registers"] = max(row["registers"],
+                                   int(line.split("Used")[1].split()[0]))
+            if "bytes smem" in line:
+                most("smem_bytes", line, "bytes smem")
             current = None
-    return regs
+    return res
+
+
+def chunk_residency(res: dict, lib) -> dict:
+    """Add to the chunk kernels' rows of ``res`` what the CUDA runtime says
+    of their residency, for the launch configuration the launchers use:
+    one board per warp."""
+    warps = lib.pomcpp_chunk_warps()
+    for simple, name in ((0, "rollout_chunk_kernel"),
+                         (1, "rollout_chunk_simple_kernel")):
+        ctas = lib.pomcpp_chunk_ctas_per_sm(simple)
+        if ctas <= 0:
+            raise RuntimeError(f"{name}: no CTA fits on an SM ({ctas})")
+        res.setdefault(name, {}).update(
+            warps_per_cta=warps, ctas_per_sm=ctas, boards_per_sm=ctas * warps)
+    return res
 
 
 def phase_build():
@@ -254,22 +303,15 @@ def phase_build():
     log(f"[build] {ver[-1]}")
     t0 = time.perf_counter()
     _ext.build()            # one nvcc per source file, started together
-    _ext.lib()
+    lib = _ext.lib()
     _ext.probes_lib()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    entry = ""
-    for line in _ext.build_log.splitlines():
-        if "entry function" in line:
-            entry = line
-        elif "registers" in line and "probe_" not in entry:
-            log(f"[build] {entry.strip()}")
-            log(f"[build] {line.strip()}")
-        elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" \
-                not in line:
-            log(f"[build] spills: {entry.strip()} {line.strip()}")
-    regs = register_counts(_ext.build_log)
-    log(f"[build] registers per thread: {json.dumps(regs)}")
-    return regs
+    # The compiler's log is kept beside each library, so a run that finds
+    # them built reports the same resources as the run that built them.
+    res = chunk_residency(kernel_resources(_ext.build_log()), lib)
+    for name, row in res.items():
+        log(f"[build] {name}: {json.dumps(row)}")
+    return res
 
 
 def phase_step(dev):
@@ -344,6 +386,7 @@ def phase_chunk(dev):
     import torch
 
     from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.cellular import empty_cell_state
     from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
     from pomcpp_tpu_torch.engine.fused_step import (
         rollout_chunk,
@@ -412,6 +455,79 @@ def phase_chunk(dev):
         log(f"[chunk] simple: {what}, {b} x {steps}: kernel == plain "
             f"({int(p[2].sum())} done marks)")
 
+    # Moving bombs are rare in random play: every 6^4 joint move on the
+    # kick-heavy state, then a few random steps, with the moves injected.
+    n, steps = 6 ** 4, 6
+    codes = torch.arange(n, device=dev)
+    moves = torch.randint(0, 6, (steps, n, 4), generator=gen, device=dev,
+                          dtype=torch.int32)
+    moves[0] = torch.stack([(codes // 6 ** i) % 6 for i in range(4)], 1).int()
+    cs = kick_heavy_state(dev)
+    cs = type(cs)(*(t.expand((n,) + t.shape[1:]).contiguous() for t in cs))
+    for policy, kw in (
+        ("random", {}),
+        ("simple", dict(fsm_state=simple_fsm_state_init(n, dev),
+                        inject_slots=(0, 1, 2, 3), prng_rand=True)),
+    ):
+        k = rollout_chunk(cs, 5, steps, policy, moves=moves, record=True,
+                          auto_reset=False, device=dev, **kw)
+        p = rollout_chunk_plain(cs, 5, steps, policy, moves=moves,
+                                record=True, auto_reset=False, **kw)
+        expect_equal(f"chunk {policy} kick sweep", k[0], p[0])
+        expect_fsm_equal(f"chunk {policy} kick sweep",
+                         k[1:3] + tuple(k[3:4] and k[3]),
+                         p[1:3] + tuple(p[3:4] and p[3]))
+        rolling = int(((p[0].bomb_dir != 0) & (p[0].bomb_timer > 0)).sum())
+        assert rolling > 0, "the kick sweep left no bomb moving"
+        log(f"[chunk] {policy}: 6^4 joint-move sweep on the kick-heavy state, "
+            f"{steps} steps: kernel == plain ({rolling} bombs still moving)")
+
+    # Four agents on a 2x2 square, every joint move: the rings without a
+    # movement root, with all four alive and with one dead.
+    ring = ((4, 4), (5, 4), (5, 5), (4, 5))
+    for gone in ((), (2,)):
+        one = empty_cell_state(1, dev)
+        board = one.board.clone()
+        for i, (x, y) in enumerate(ring):
+            board[0, x + 11 * y] = 10 + i
+        dead = torch.tensor([[i in gone for i in range(4)]], device=dev)
+        one = kill(one._replace(
+            board=board,
+            agent_x=torch.tensor([[x for x, _ in ring]], dtype=torch.int32,
+                                 device=dev),
+            agent_y=torch.tensor([[y for _, y in ring]], dtype=torch.int32,
+                                 device=dev)), dead)
+        cs = type(one)(*(t.expand((n,) + t.shape[1:]).contiguous()
+                         for t in one))
+        k = rollout_chunk(cs, 5, 2, "random", moves=moves[:2], record=True,
+                          auto_reset=False, device=dev)
+        p = rollout_chunk_plain(cs, 5, 2, "random", moves=moves[:2],
+                                record=True, auto_reset=False)
+        expect_equal(f"chunk ring sweep dead={gone}", k[0], p[0])
+        expect_fsm_equal(f"chunk ring sweep dead={gone}", k[1:3], p[1:3])
+    log("[chunk] random: 6^4 joint-move sweep on a 2x2 ring of agents, all "
+        "alive and one dead, 2 steps: kernel == plain")
+
+    # Ragged and tiny batches: the last CTA of four warps is partly or
+    # mostly without a board.
+    for b, steps in ((1021, 48), (5, 24), (3, 24), (1, 24)):
+        cs = close_quarters(random_cell_state(b, generator=gen), gen)
+        cs = cs._replace(agent_can_kick=torch.rand((b, 4), generator=gen,
+                                                   device=dev) < 0.5)
+        fsm = simple_fsm_state_init(b, dev)
+        for policy in ("harmless", "random", "simple"):
+            kw = dict(fsm_state=fsm) if policy == "simple" else {}
+            k = rollout_chunk(cs, 40 + b, steps, policy, record=True,
+                              device=dev, **kw)
+            p = rollout_chunk_plain(cs, 40 + b, steps, policy, record=True,
+                                    **kw)
+            expect_equal(f"chunk {policy} {b} boards", k[0], p[0])
+            expect_fsm_equal(f"chunk {policy} {b} boards",
+                             k[1:3] + tuple(k[3:4] and k[3]),
+                             p[1:3] + tuple(p[3:4] and p[3]))
+        log(f"[chunk] ragged: {b} boards x {steps} steps, harmless, random "
+            f"and simple, Philox draws + auto-reset: kernel == plain")
+
 
 def phase_main(dev):
     """The main path at full width; returns timings and launch counts."""
@@ -428,10 +544,14 @@ def phase_main(dev):
 
     cs = random_cell_state(BOARDS, seed=0)
     fsm = simple_fsm_state_init(BOARDS)
-    # Warm-up chunks outside the counted run (first launch, lazy init).
-    rollout_chunk(cs, 1, 8, "harmless")
-    rollout_chunk(cs, 1, 8, "simple", fsm_state=fsm)
+    # Warm-up chunks outside the counted run (first launch, lazy init), two
+    # in a row so that the allocator already holds a second set of output
+    # arrays: a chunk is short enough now for a cudaMalloc to show in it.
+    warm = rollout_chunk(rollout_chunk(cs, 1, 8, "harmless"), 2, 8, "harmless")
+    warm = rollout_chunk(warm, 1, 8, "simple", fsm_state=fsm)
+    warm = rollout_chunk(warm[0], 2, 8, "simple", fsm_state=warm[1])
     torch.cuda.synchronize()
+    del warm
 
     _ext.reset_launches()
     res = {"chunk_ms": {}, "steps_per_s": {}}
@@ -845,6 +965,76 @@ def profile_env(es) -> None:
             f"x{e.count / 32:6.1f}/step  {e.key[:100]}")
 
 
+# wl::Phase of csrc/step_warp.cuh: cycle sums, then event counts.
+PHASES = ("draw", "danger", "bfs", "flee", "decide", "move", "bombs", "blast",
+          "rest", "n_bfs_rounds", "n_bomb_steps", "n_move_passes", "n_blasts",
+          "n_steps")
+PHASE_CLOCKS = ("-DPOMCPP_PHASE_CLOCKS=1",)
+
+
+def phase_shares(totals) -> dict:
+    """From the phase clocks' totals (``PHASES`` order): each phase's share
+    of the summed warp cycles, the warp cycles and the event counts per
+    step."""
+    got = dict(zip(PHASES, totals))
+    cycles = sum(v for k, v in got.items() if not k.startswith("n_"))
+    steps = max(got["n_steps"], 1)
+    out = {k: round(v / max(cycles, 1), 4) for k, v in got.items()
+           if not k.startswith("n_")}
+    out["warp_cycles_per_step"] = round(cycles / steps, 1)
+    for k in ("n_bfs_rounds", "n_bomb_steps", "n_move_passes", "n_blasts"):
+        out[k + "_per_step"] = round(got[k] / steps, 4)
+    return out
+
+
+def profile_chunk_phases(smi: str) -> None:
+    """Where a chunk's warp cycles go (``--profile``): two chunks of each
+    policy at the main path's size through the build with the phase clocks,
+    held to the plain build's result.  The clocks cost registers and time,
+    so the chunk times printed here are not the kernel's."""
+    import ctypes
+
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine import fused_step as fs
+    from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
+
+    lib = _ext.lib(PHASE_CLOCKS)
+    res = kernel_resources(_ext.build_log(("kernels",), PHASE_CLOCKS))
+    stream = torch.cuda.current_stream().cuda_stream
+    totals = (ctypes.c_ulonglong * len(PHASES))()
+    cs0 = random_cell_state(BOARDS, seed=0)
+    for policy in ("harmless", "random", "simple"):
+        clocked = plain = (cs0, simple_fsm_state_init(BOARDS)
+                           if policy == "simple" else None)
+        if lib.pomcpp_phase_totals(totals) != len(PHASES):     # clears them
+            raise RuntimeError("the phase clocks' slots are not PHASES")
+        ms = []
+        for chunk in range(2):
+            with Timer() as tm:
+                out = fs._rollout_chunk_launch(
+                    lib, stream, clocked[0], 100 + chunk, CHUNK,
+                    fs.POLICY_MOVES[policy], None, False, True, None,
+                    clocked[1], (), False)
+            ms.append(tm.ms())
+            clocked = out if policy == "simple" else (out, None)
+            out = fs.rollout_chunk(plain[0], 100 + chunk, CHUNK, policy,
+                                   fsm_state=plain[1])
+            plain = out if policy == "simple" else (out, None)
+        lib.pomcpp_phase_totals(totals)
+        expect_equal(f"phase clocks, {policy}", clocked[0], plain[0])
+        if policy == "simple":
+            expect_fsm_equal("phase clocks, FSM", clocked[1], plain[1])
+        name = ("rollout_chunk_simple_kernel" if policy == "simple"
+                else "rollout_chunk_kernel")
+        log(f"[profile] {policy} chunk with phase clocks: "
+            f"{json.dumps(phase_shares(totals))}; clocked chunk ms "
+            f"{[round(t, 3) for t in ms]}, {json.dumps(res.get(name, {}))}, "
+            f"== the plain build, on {smi}")
+
+
 def probe_outputs_equal(what: str, a, b) -> int:
     import torch
 
@@ -978,6 +1168,7 @@ def main() -> int:
         return 4
     if "--profile" in sys.argv[1:]:
         profile_env(phase_env_main(dev)["state"])
+        profile_chunk_phases(smi)
         log("partial run: no result line")
         return 4
     phase_step(dev)
@@ -1099,7 +1290,14 @@ def main() -> int:
                          for r in mine],
         })
     for row in kernels:
-        row["registers"] = regs.get(row["name"])
+        row.update(regs.get(row["name"], {}))
+    # The chunk kernel's time in this layout beside the time PERF.md holds
+    # for the layout it replaced (one board per 128-thread CTA).
+    log("[timing] chunk kernel, one board per warp, beside one board per CTA "
+        "(CTA_LAYOUT_MS, from PERF.md): " + ", ".join(
+            f"{pol} {main_ms[pol]:.3f} ms ({was} ms, "
+            f"{was / main_ms[pol]:.2f}x)"
+            for pol, was in CTA_LAYOUT_MS.items()) + f" on {smi}")
     step_ms = timing["step"][0]
     env_rates = {k: env_res[k] for k in ("fused", "fsm", "observe", "gym")}
     log(f"[main] steps/s: {json.dumps(main_res['steps_per_s'])} on {smi}")

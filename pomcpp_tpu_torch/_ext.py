@@ -5,8 +5,11 @@ library of its own with a plain C interface under ``build/torch_ext/`` in
 the checkout, and loaded with ``ctypes``; no PyTorch header is compiled,
 which keeps the build to seconds, and ``build()`` starts every compiler at
 once.  A library's name carries a hash of its sources and flags, so an
-edited source is rebuilt.  Nothing here runs at import: the CPU-only
-install (no ``nvcc``, no card) imports the package freely.
+edited source is rebuilt; the compiler's ``-Xptxas -v`` output is kept
+beside the library (``.log``), so that ``build_log()`` describes the
+library that is loaded even when an earlier run built it.  Nothing here
+runs at import: the CPU-only install (no ``nvcc``, no card) imports the
+package freely.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run resets
 it with ``reset_launches()`` to show which kernels a path went through.
@@ -24,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 # One shared library per source file, so that they build side by side.
 LIBRARIES = {
-    "kernels": ("fused_step.cu", ("step_block.cuh", "fsm_block.cuh")),
+    "kernels": ("fused_step.cu", ("step_block.cuh", "fsm_block.cuh",
+                                  "step_warp.cuh", "fsm_warp.cuh")),
     "probes": ("probes.cu", ()),
 }
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ext"
@@ -39,9 +43,7 @@ KERNELS = ("fused_step_kernel", "rollout_chunk_kernel",
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
-_libs: dict = {}
-_bound: set = set()
-build_log = ""
+_libs: dict = {}    # (library, defines) -> loaded handle
 
 
 def reset_launches() -> None:
@@ -59,46 +61,57 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def _target(name: str, defines=()) -> Path:
     source, headers = LIBRARIES[name]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for f in (source,) + headers:
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"libpomcpp_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=tuple(LIBRARIES)) -> dict:
+def build(names=tuple(LIBRARIES), defines=()) -> dict:
     """Compile the named libraries that have no file for their exact
-    sources yet, all ``nvcc`` runs started together; returns their paths."""
-    global build_log
-    outs = {name: _target(name) for name in names}
+    sources yet, all ``nvcc`` runs started together; returns their paths.
+    ``defines`` is for ``-DPOMCPP_PHASE_CLOCKS=1``, the one build option of
+    ``fused_step.cu``: such a build is a library of its own."""
+    outs = {name: _target(name, defines) for name in names}
     procs = []
     for name, out in outs.items():
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
                str(CSRC / LIBRARIES[name][0])]
         procs.append((name, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, tmp, out, proc in procs:
         log = proc.communicate()[0]
-        build_log += log
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {name} ({proc.returncode}):\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs
 
 
-def _load(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        _libs[name] = ctypes.CDLL(str(build((name,))[name]))
-    return _libs[name]
+def build_log(names=tuple(LIBRARIES), defines=()) -> str:
+    """What ``nvcc`` printed when it built the named libraries' current
+    files, whichever run built them ("" for one not built yet)."""
+    logs = (_target(name, defines).with_suffix(".log") for name in names)
+    return "".join(p.read_text() for p in logs if p.exists())
+
+
+def _load(name: str, defines=()) -> tuple:
+    """(handle, loaded just now) of a library, built if need be."""
+    key = (name, tuple(defines))
+    fresh = key not in _libs
+    if fresh:
+        _libs[key] = ctypes.CDLL(str(build((name,), defines)[name]))
+    return _libs[key], fresh
 
 
 class StateView(ctypes.Structure):
@@ -113,35 +126,48 @@ class FsmView(ctypes.Structure):
     _fields_ = [("f", ctypes.c_void_p * 10)]
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded engine kernels (``fused_step.cu``), built on first call."""
-    handle = _load("kernels")
-    if "kernels" not in _bound:
-        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        handle.pomcpp_fused_step.argtypes = [StateView, StateView, p, i, p]
-        handle.pomcpp_fused_step.restype = i
-        handle.pomcpp_rollout_chunk.argtypes = [
-            StateView, StateView, i, i, i, u, u, p, p, p, i, p, p, p,
-        ]
-        handle.pomcpp_rollout_chunk.restype = i
-        handle.pomcpp_rollout_chunk_simple.argtypes = [
-            StateView, StateView, FsmView, FsmView, i, i, u, u, p, i, i, p, p,
-            i, p, p, p,
-        ]
-        handle.pomcpp_rollout_chunk_simple.restype = i
-        handle.pomcpp_fsm_act.argtypes = [StateView, FsmView, FsmView, p, p,
-                                          i, p]
-        handle.pomcpp_fsm_act.restype = i
-        handle.pomcpp_error_string.argtypes = [i]
-        handle.pomcpp_error_string.restype = ctypes.c_char_p
-        _bound.add("kernels")
+def bind_kernels(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of ``fused_step.cu``."""
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    handle.pomcpp_fused_step.argtypes = [StateView, StateView, p, i, p]
+    handle.pomcpp_fused_step.restype = i
+    handle.pomcpp_rollout_chunk.argtypes = [
+        StateView, StateView, i, i, i, u, u, p, p, p, i, p, p, p,
+    ]
+    handle.pomcpp_rollout_chunk.restype = i
+    handle.pomcpp_rollout_chunk_simple.argtypes = [
+        StateView, StateView, FsmView, FsmView, i, i, u, u, p, i, i, p, p,
+        i, p, p, p,
+    ]
+    handle.pomcpp_rollout_chunk_simple.restype = i
+    handle.pomcpp_fsm_act.argtypes = [StateView, FsmView, FsmView, p, p,
+                                      i, p]
+    handle.pomcpp_fsm_act.restype = i
+    handle.pomcpp_chunk_warps.argtypes = []
+    handle.pomcpp_chunk_warps.restype = i
+    handle.pomcpp_chunk_grid.argtypes = [i]
+    handle.pomcpp_chunk_grid.restype = i
+    handle.pomcpp_chunk_ctas_per_sm.argtypes = [i]
+    handle.pomcpp_chunk_ctas_per_sm.restype = i
+    handle.pomcpp_phase_totals.argtypes = [p]
+    handle.pomcpp_phase_totals.restype = i
+    handle.pomcpp_error_string.argtypes = [i]
+    handle.pomcpp_error_string.restype = ctypes.c_char_p
     return handle
+
+
+def lib(defines=()) -> ctypes.CDLL:
+    """The loaded engine kernels (``fused_step.cu``), built on first call.
+    The port's entry points load the plain build; ``defines`` names the
+    build with the phase clocks (see ``build``)."""
+    handle, fresh = _load("kernels", defines)
+    return bind_kernels(handle) if fresh else handle
 
 
 def probes_lib() -> ctypes.CDLL:
     """The loaded probe kernels (``probes.cu``), built on first call."""
-    handle = _load("probes")
-    if "probes" not in _bound:
+    handle, fresh = _load("probes")
+    if fresh:
         p, i = ctypes.c_void_p, ctypes.c_int
         handle.pomcpp_probe_elem.argtypes = [i, i, i, p, p, i, i, i, i, i, p]
         handle.pomcpp_probe_shift.argtypes = [i, i, i, p, p, p, p, i, i, i, i,
@@ -153,16 +179,16 @@ def probes_lib() -> ctypes.CDLL:
             fn.restype = i
         handle.pomcpp_probes_error_string.argtypes = [i]
         handle.pomcpp_probes_error_string.restype = ctypes.c_char_p
-        _bound.add("probes")
     return handle
 
 
-def check(err: int, probes: bool = False) -> None:
-    """Raise if a launcher reported a CUDA error."""
+def check(err: int, error_string) -> None:
+    """Raise if a launcher reported a CUDA error; ``error_string`` is the
+    ``pomcpp_error_string`` / ``pomcpp_probes_error_string`` of the library
+    that launched."""
     if err != 0:
-        msg = (probes_lib().pomcpp_probes_error_string(err) if probes
-               else lib().pomcpp_error_string(err)).decode()
-        raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
+        raise RuntimeError(
+            f"CUDA kernel launch failed: {error_string(err).decode()} ({err})")
 
 
 def _view(cls, arrays):

@@ -1,23 +1,40 @@
-// The two fused kernels of the port and their plain C launchers (bound to
+// The engine kernels of the port and their plain C launchers (bound to
 // PyTorch with ctypes by pomcpp_tpu_torch/_ext.py).
 //
 // fused_step_kernel replaces `_kernel` / `pallas_step`
 // (pomcpp_tpu/engine/pallas_step.py:1261, :1283): one step for B boards.
+// fsm_act_kernel replaces one `fsm_block` act
+// (pomcpp_tpu/engine/pallas_fsm.py:357) for B boards.  Both hold one board
+// per 128-thread CTA, one cell per thread (step_block.cuh, fsm_block.cuh),
+// and are bound by the latency of their CTA-wide barriers.
+//
 // rollout_chunk_kernel replaces `_chunk_kernel` / `pallas_rollout_chunk`
-// (:840, :1069): each CTA loads one board's state once, runs `steps` steps
-// with in-kernel Philox draws and the pipelined auto-reset, and writes the
-// state back once -- the counterpart of the TPU kernel keeping its block in
+// (:840, :1069): a board's state is loaded once, `steps` steps run with
+// in-kernel Philox draws and the pipelined auto-reset, and the state is
+// written back once -- the counterpart of the TPU kernel keeping its block in
 // VMEM for a chunk.  rollout_chunk_kernel<false> serves the harmless and
 // random policies; rollout_chunk_kernel<true> is policy="simple": the draws
-// are the SimpleAgent's rands, the FSM of fsm_block.cuh picks the moves
-// (with the `inject_slots` override of mixed control), and the ten FSM
-// arrays ride along in shared memory.  fsm_act_kernel replaces one
-// `fsm_block` act (pomcpp_tpu/engine/pallas_fsm.py:357) for B boards.
+// are the SimpleAgent's rands, the FSM picks the moves (with the
+// `inject_slots` override of mixed control), and the ten FSM arrays ride
+// along in shared memory.
+//
+// The chunk kernel holds ONE BOARD PER WARP (step_warp.cuh, fsm_warp.cuh):
+// lane l keeps cells 4l..4l+3 of every plane in registers, neighbours are
+// read by shuffle, boolean planes by ballot, sums by __reduce_*_sync, and
+// nothing in it synchronises a CTA; a CTA is CHUNK_WARPS independent boards
+// and the grid is ceil(batch / CHUNK_WARPS).  In the CTA
+// layout the chunk spent its time at 60-100 barriers a step (one more per
+// BFS round) with the per-agent code run by all four warps; see the notes at
+// the top of the two headers for what each phase does instead.
 //
 // Bound on the card: a chunk moves 2 x 3,500 bytes per board through HBM
 // (plus the optional test-hook arrays), so at 16384 boards the byte bound
-// is tens of microseconds, far below the time the step body takes; the
-// kernel is bound by barrier latency and scalar issue (see step_block.cuh).
+// is tens of microseconds, far below the time the step body takes.  The
+// kernel is bound by the integer pipe (compares, selects and
+// logic, 64 lanes a cycle per SM) and, for the simple policy, by the chain
+// of dependent BFS exchanges; `python3 chip_smoke.py --profile` builds the
+// library with -DPOMCPP_PHASE_CLOCKS (its one build option) and prints where
+// the cycles go.
 //
 // The PRNG is Philox4x32-10 (Salmon et al., SC'11), counter
 // (board, chunk-local step, stream, word), key (seed lo, seed hi); the
@@ -28,9 +45,30 @@
 #include <type_traits>
 
 #include "fsm_block.cuh"
+#include "fsm_warp.cuh"
 #include "step_block.cuh"
+#include "step_warp.cuh"
+
+// A kernel launch.  The tests' host build (csrc/host_emu/cuda_runtime.h)
+// defines it as a loop over the grid's warps on the CPU.
+#ifndef POMCPP_LAUNCH
+#define POMCPP_LAUNCH(kernel, grid, block, stream, ...) \
+  kernel<<<(grid), (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__)
+#endif
 
 namespace pomcpp {
+
+// Boards (warps) per CTA of the chunk kernel and the CTAs per SM its
+// registers are capped for (128 registers a thread, 16 boards per SM); the
+// launchers' grid is ceil(batch / CHUNK_WARPS).
+constexpr int CHUNK_WARPS = 4;
+constexpr int CHUNK_MIN_CTAS = 4;
+constexpr int chunk_grid(int batch) { return (batch + CHUNK_WARPS - 1) / CHUNK_WARPS; }
+
+#ifdef POMCPP_PHASE_CLOCKS
+// Sums over every warp of every chunk launch since the last read.
+__device__ unsigned long long phase_totals[wl::PHASE_SLOTS];
+#endif
 
 struct StateView {
   int32_t* f[14];  // board, hidden, ftimer, btimer, bstr, bdir, bown: [B, 121]
@@ -54,6 +92,11 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0, uint32_t 
 
 // Non-negative 30-bit draw from a 32-bit word, as the TPU kernel takes it.
 __device__ __forceinline__ int draw30(uint32_t w) { return (int)((w >> 1) & 0x3FFFFFFFu); }
+
+// v % n; the policies' move counts divide by a constant.
+__device__ __forceinline__ int draw_mod(int v, int n) {
+  return n == 5 ? v % 5 : n == 6 ? v % 6 : v % n;
+}
 
 __device__ __forceinline__ uint32_t word_of(uint4 v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
@@ -122,43 +165,131 @@ __global__ void __launch_bounds__(NT) fused_step_kernel(StateView in, StateView 
   store_board(out, b, c, s, A);
 }
 
+// Warp-layout loads and stores: lane l moves cells 4l..4l+3 of its warp's
+// board; the agents' state is loaded into every lane and stored by lanes 0-3.
+__device__ __forceinline__ void load_board(const StateView& in, int b, const wl::Geo& g,
+                                           wl::Cells& s, Agents& A) {
+#pragma unroll
+  for (int j = 0; j < wl::CPL; ++j) {
+    const int c = g.c0 + j, o = b * NC + c;
+    const bool v = c < NC;
+    s.board[j] = v ? in.f[0][o] : 0;
+    s.hidden[j] = v ? in.f[1][o] : 0;
+    s.ftimer[j] = v ? in.f[2][o] : 0;
+    s.btimer[j] = v ? in.f[3][o] : 0;
+    s.bstr[j] = v ? in.f[4][o] : 0;
+    s.bdir[j] = v ? in.f[5][o] : 0;
+    s.bown[j] = v ? in.f[6][o] : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const int o = b * NA + i;
+    A.x[i] = in.f[7][o];
+    A.y[i] = in.f[8][o];
+    A.bc[i] = in.f[9][o];
+    A.mb[i] = in.f[10][o];
+    A.st[i] = in.f[11][o];
+    A.kick[i] = in.f[12][o];
+    A.dead[i] = in.f[13][o];
+  }
+}
+
+__device__ __forceinline__ void store_board(const StateView& out, int b, const wl::Geo& g,
+                                            const wl::Cells& s, const Agents& A) {
+#pragma unroll
+  for (int j = 0; j < wl::CPL; ++j) {
+    const int c = g.c0 + j, o = b * NC + c;
+    if (c < NC) {
+      out.f[0][o] = s.board[j];
+      out.f[1][o] = s.hidden[j];
+      out.f[2][o] = s.ftimer[j];
+      out.f[3][o] = s.btimer[j];
+      out.f[4][o] = s.bstr[j];
+      out.f[5][o] = s.bdir[j];
+      out.f[6][o] = s.bown[j];
+    }
+  }
+  if (g.lane < NA) {
+    const int i = g.lane, o = b * NA + i;
+    out.f[7][o] = pick4(A.x, i);
+    out.f[8][o] = pick4(A.y, i);
+    out.f[9][o] = pick4(A.bc, i);
+    out.f[10][o] = pick4(A.mb, i);
+    out.f[11][o] = pick4(A.st, i);
+    out.f[12][o] = pick4(A.kick, i);
+    out.f[13][o] = pick4(A.dead, i);
+  }
+}
+
+// The chunk kernel in the warp layout (step_warp.cuh, fsm_warp.cuh): warp w
+// of CTA k owns board k * CHUNK_WARPS + w for the whole chunk, and no warp
+// ever waits for another, so a warp past the end of the batch just returns.
+//
 // kSimple: `n_moves` is 5, the draws (or moves[t] unless prng_rand) are the
 // FSM's rands, and lanes set in inject_mask take their move from moves[t].
 template <bool kSimple>
-__global__ void __launch_bounds__(NT) rollout_chunk_kernel(
+__global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) rollout_chunk_kernel(
     StateView in, StateView out, FsmView fin, FsmView fout, int batch, int steps, int n_moves,
     uint32_t k0, uint32_t k1, const int32_t* __restrict__ moves, int inject_mask, int prng_rand,
     const int32_t* __restrict__ reset_board, const int32_t* __restrict__ reset_hidden,
     int auto_reset, int32_t* __restrict__ rec_moves, int32_t* __restrict__ rec_done) {
-  __shared__ Shared sh;
-  __shared__ std::conditional_t<kSimple, FsmShared, char> fs;
-  const int b = blockIdx.x, c = threadIdx.x;
-  Cell s;
+  __shared__ wl::WarpShared ws_all[CHUNK_WARPS];
+  __shared__ std::conditional_t<kSimple, wl::FsmSlice, char> fs_all[CHUNK_WARPS];
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * CHUNK_WARPS + warp;
+  if (b >= batch) return;  // the whole warp, and nothing below waits for it
+  wl::WarpShared& ws = ws_all[warp];
+  auto& fs = fs_all[warp];
+  const wl::Geo g = wl::make_geo();
+  wl::PhaseClock pc;
+  pc.start();
+  wl::Cells s;
   Agents A;
-  load_board(in, b, c, s, A);
-  if constexpr (kSimple) fsm_load(fin, b, c, fs);
+  load_board(in, b, g, s, A);
+  if constexpr (kSimple) {
+    fsm_load(fin, b, g.lane, fs);
+    wl::fsm_slice_init(fs, g);
+  }
 
-  // This board's replacement terrain, drawn once per chunk (_fresh_boards).
-  int fboard = 0, fhidden = 0;
-  if (auto_reset && c < NC) {
-    if (reset_board != nullptr) {
-      fboard = reset_board[b * NC + c];
-      fhidden = reset_hidden[b * NC + c];
-    } else {
-      const uint4 cw = philox4x32_10(make_uint4((uint32_t)b, 0u, STREAM_CELLS, (uint32_t)(c >> 2)), k0, k1);
-      const uint4 fw = philox4x32_10(make_uint4((uint32_t)b, 0u, STREAM_FLAGS, (uint32_t)(c >> 2)), k0, k1);
-      const int tmp = draw30(word_of(cw, c & 3)) % 7;
-      const int flags = draw30(word_of(fw, c & 3));
-      fboard = tmp == 1 ? C_RIGID : tmp == 2 ? C_WOOD : C_PASSAGE;
-      fhidden = (fboard == C_WOOD && (flags & 1) == 0) ? ((flags >> 1) % 4) + 1 : 0;
+  // This board's replacement terrain, drawn once per chunk (_fresh_boards):
+  // one Philox call gives the words of a lane's four cells.  Packed 8 bits
+  // a cell: board code (at most 13) | hidden power-up (at most 4) << 4.
+  uint32_t fresh = 0;
+  if (auto_reset) {
+    uint4 cw = make_uint4(0u, 0u, 0u, 0u), fw = cw;
+    if (reset_board == nullptr) {
+      cw = philox4x32_10(make_uint4((uint32_t)b, 0u, STREAM_CELLS, (uint32_t)g.lane), k0, k1);
+      fw = philox4x32_10(make_uint4((uint32_t)b, 0u, STREAM_FLAGS, (uint32_t)g.lane), k0, k1);
     }
-    if (c == 0) fboard = C_AGENT0 + 0;
-    if (c == BS - 1) fboard = C_AGENT0 + 1;
-    if (c == NC - 1) fboard = C_AGENT0 + 2;
-    if (c == NC - BS) fboard = C_AGENT0 + 3;
+#pragma unroll
+    for (int j = 0; j < wl::CPL; ++j) {
+      const int c = g.c0 + j;
+      int fboard = 0, fhidden = 0;
+      if (c < NC) {
+        if (reset_board != nullptr) {
+          fboard = reset_board[b * NC + c];
+          fhidden = reset_hidden[b * NC + c];
+        } else {
+          const int tmp = draw30(word_of(cw, j)) % 7;
+          const int flags = draw30(word_of(fw, j));
+          fboard = tmp == 1 ? C_RIGID : tmp == 2 ? C_WOOD : C_PASSAGE;
+          fhidden = (fboard == C_WOOD && (flags & 1) == 0) ? ((flags >> 1) % 4) + 1 : 0;
+        }
+        if (c == 0) fboard = C_AGENT0 + 0;
+        if (c == BS - 1) fboard = C_AGENT0 + 1;
+        if (c == NC - 1) fboard = C_AGENT0 + 2;
+        if (c == NC - BS) fboard = C_AGENT0 + 3;
+      }
+      fresh |= (uint32_t)((fboard & 15) | ((fhidden & 15) << 4)) << (8 * j);
+    }
   }
   auto merge_fresh = [&]() {
-    s = Cell{fboard, fhidden, 0, 0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < wl::CPL; ++j) {
+      s.board[j] = (int)((fresh >> (8 * j)) & 15u);
+      s.hidden[j] = (int)((fresh >> (8 * j + 4)) & 15u);
+      s.ftimer[j] = s.btimer[j] = s.bstr[j] = s.bdir[j] = s.bown[j] = 0;
+    }
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       A.x[i] = (i == 1 || i == 2) ? BS - 1 : 0;
@@ -174,47 +305,70 @@ __global__ void __launch_bounds__(NT) rollout_chunk_kernel(
   // Pipelined reset: the mask merged at the head of step t was computed at
   // the head of step t-1 (the first one from the input state).
   bool done = auto_reset && finished(A);
+  // The draws of 32 steps at a time: lane l holds the Philox words of step
+  // (t & ~31) + l, and each step fetches its four with shuffles, so that the
+  // warp does not compute one Philox call 32 times over.
+  uint4 bank = make_uint4(0u, 0u, 0u, 0u);
+  const bool drawn = moves == nullptr || (kSimple && prng_rand);
   for (int t = 0; t < steps; ++t) {
     int mv[NA];
-    if (moves != nullptr && !(kSimple && prng_rand)) {
+    if (!drawn) {
 #pragma unroll
       for (int i = 0; i < NA; ++i) mv[i] = moves[((size_t)t * batch + b) * NA + i];
     } else {
-      const uint4 w = philox4x32_10(make_uint4((uint32_t)b, (uint32_t)t, STREAM_MOVES, 0u), k0, k1);
+      if ((t & 31) == 0)
+        bank = philox4x32_10(
+            make_uint4((uint32_t)b, (uint32_t)(t + g.lane), STREAM_MOVES, 0u), k0, k1);
+      const uint32_t w[NA] = {
+          (uint32_t)__shfl_sync(wl::FULL, (int)bank.x, t & 31),
+          (uint32_t)__shfl_sync(wl::FULL, (int)bank.y, t & 31),
+          (uint32_t)__shfl_sync(wl::FULL, (int)bank.z, t & 31),
+          (uint32_t)__shfl_sync(wl::FULL, (int)bank.w, t & 31)};
 #pragma unroll
-      for (int i = 0; i < NA; ++i) mv[i] = draw30(word_of(w, i)) % n_moves;
+      for (int i = 0; i < NA; ++i) mv[i] = draw_mod(draw30(w[i]), n_moves);
     }
     bool done_next = done;
     if (auto_reset) {
-      if (done) {
+      // `done` is the same in every lane; the vote says so to the compiler,
+      // which otherwise turns the rare merge into 56 selects a step.
+      if (__any_sync(wl::FULL, done)) {
         merge_fresh();
-        if constexpr (kSimple) fsm_reset(c, fs);
+        if constexpr (kSimple) fsm_reset(g.lane, fs);
       }
       done_next = finished(A);
     }
+    pc.mark(wl::PH_DRAW);
     if constexpr (kSimple) {
       const int rnd[NA] = {mv[0], mv[1], mv[2], mv[3]};
-      fsm_act(s, A, rnd, fs, mv);
+      wl::fsm_act(s, A, rnd, fs, mv, g, pc);
 #pragma unroll
       for (int i = 0; i < NA; ++i) {
         if ((inject_mask >> i) & 1) mv[i] = moves[((size_t)t * batch + b) * NA + i];
         if (A.dead[i]) mv[i] = 0;
       }
     }
-    step_board(s, A, mv, sh);
-    if (rec_moves != nullptr && c < NA) {
-      rec_moves[((size_t)t * batch + b) * NA + c] = mv[c];
-      if (c == 0) rec_done[(size_t)t * batch + b] = finished(A);
+    wl::step_board(s, A, mv, ws, g, pc);
+    if (rec_moves != nullptr && g.lane < NA) {
+      rec_moves[((size_t)t * batch + b) * NA + g.lane] = pick4(mv, g.lane);
+      if (g.lane == 0) rec_done[(size_t)t * batch + b] = finished(A);
     }
     done = done_next;
+    pc.count(wl::N_STEPS);
+    pc.mark(wl::PH_REST);
   }
   // Catch-up merge: boards that finished in the last two steps.
   if (auto_reset && finished(A)) {
     merge_fresh();
-    if constexpr (kSimple) fsm_reset(c, fs);
+    if constexpr (kSimple) fsm_reset(g.lane, fs);
   }
-  store_board(out, b, c, s, A);
-  if constexpr (kSimple) fsm_store(fout, b, c, fs);
+  store_board(out, b, g, s, A);
+  if constexpr (kSimple) fsm_store(fout, b, g.lane, fs);
+#ifdef POMCPP_PHASE_CLOCKS
+  if (g.lane == 0) {
+#pragma unroll
+    for (int k = 0; k < wl::PHASE_SLOTS; ++k) atomicAdd(&phase_totals[k], (unsigned long long)pc.acc[k]);
+  }
+#endif
 }
 
 __global__ void __launch_bounds__(NT) fsm_act_kernel(StateView in, FsmView fin, FsmView fout,
@@ -241,7 +395,7 @@ extern "C" {
 int pomcpp_fused_step(pomcpp::StateView in, pomcpp::StateView out, const int32_t* moves,
                       int batch, void* stream) {
   if (batch <= 0) return (int)cudaErrorInvalidValue;
-  pomcpp::fused_step_kernel<<<batch, pomcpp::NT, 0, (cudaStream_t)stream>>>(in, out, moves);
+  POMCPP_LAUNCH(pomcpp::fused_step_kernel, batch, pomcpp::NT, stream, in, out, moves);
   return (int)cudaGetLastError();
 }
 
@@ -250,9 +404,10 @@ int pomcpp_rollout_chunk(pomcpp::StateView in, pomcpp::StateView out, int batch,
                          const int32_t* reset_board, const int32_t* reset_hidden, int auto_reset,
                          int32_t* rec_moves, int32_t* rec_done, void* stream) {
   if (batch <= 0 || steps < 0 || n_moves <= 0) return (int)cudaErrorInvalidValue;
-  pomcpp::rollout_chunk_kernel<false><<<batch, pomcpp::NT, 0, (cudaStream_t)stream>>>(
-      in, out, pomcpp::FsmView{}, pomcpp::FsmView{}, batch, steps, n_moves, k0, k1, moves, 0, 0,
-      reset_board, reset_hidden, auto_reset, rec_moves, rec_done);
+  const pomcpp::FsmView none{};
+  POMCPP_LAUNCH(pomcpp::rollout_chunk_kernel<false>, pomcpp::chunk_grid(batch),
+                pomcpp::CHUNK_WARPS * 32, stream, in, out, none, none, batch, steps, n_moves, k0,
+                k1, moves, 0, 0, reset_board, reset_hidden, auto_reset, rec_moves, rec_done);
   return (int)cudaGetLastError();
 }
 
@@ -264,18 +419,50 @@ int pomcpp_rollout_chunk_simple(pomcpp::StateView in, pomcpp::StateView out, pom
                                 int32_t* rec_done, void* stream) {
   if (batch <= 0 || steps < 0 || (inject_mask != 0 && moves == nullptr))
     return (int)cudaErrorInvalidValue;
-  pomcpp::rollout_chunk_kernel<true><<<batch, pomcpp::NT, 0, (cudaStream_t)stream>>>(
-      in, out, fin, fout, batch, steps, 5, k0, k1, moves, inject_mask, prng_rand, reset_board,
-      reset_hidden, auto_reset, rec_moves, rec_done);
+  POMCPP_LAUNCH(pomcpp::rollout_chunk_kernel<true>, pomcpp::chunk_grid(batch),
+                pomcpp::CHUNK_WARPS * 32, stream, in, out, fin, fout, batch, steps, 5, k0, k1,
+                moves, inject_mask, prng_rand, reset_board, reset_hidden, auto_reset, rec_moves,
+                rec_done);
   return (int)cudaGetLastError();
 }
 
 int pomcpp_fsm_act(pomcpp::StateView in, pomcpp::FsmView fin, pomcpp::FsmView fout,
                    const int32_t* rands, int32_t* moves, int batch, void* stream) {
   if (batch <= 0) return (int)cudaErrorInvalidValue;
-  pomcpp::fsm_act_kernel<<<batch, pomcpp::NT, 0, (cudaStream_t)stream>>>(in, fin, fout, rands,
-                                                                        moves);
+  POMCPP_LAUNCH(pomcpp::fsm_act_kernel, batch, pomcpp::NT, stream, in, fin, fout, rands, moves);
   return (int)cudaGetLastError();
+}
+
+// Boards per CTA of the chunk kernel, the CTAs the launchers start for a
+// batch, and the CTAs that the runtime keeps resident on one SM (0 or less:
+// none fits, or the query failed).
+int pomcpp_chunk_warps() { return pomcpp::CHUNK_WARPS; }
+
+int pomcpp_chunk_grid(int batch) { return pomcpp::chunk_grid(batch); }
+
+int pomcpp_chunk_ctas_per_sm(int simple) {
+  int n = 0;
+  const cudaError_t err =
+      simple ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, pomcpp::rollout_chunk_kernel<true>, pomcpp::CHUNK_WARPS * 32, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, pomcpp::rollout_chunk_kernel<false>, pomcpp::CHUNK_WARPS * 32, 0);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// The phase clocks' totals (wl::Phase; `out` holds PHASE_SLOTS values),
+// cleared by the read.  Returns the number of slots, 0 if the library was
+// built without -DPOMCPP_PHASE_CLOCKS, a negative CUDA error otherwise.
+int pomcpp_phase_totals(unsigned long long* out) {
+#ifdef POMCPP_PHASE_CLOCKS
+  const unsigned long long zero[pomcpp::wl::PHASE_SLOTS] = {};
+  cudaError_t err = cudaMemcpyFromSymbol(out, pomcpp::phase_totals, sizeof(zero));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(pomcpp::phase_totals, zero, sizeof(zero));
+  return err == cudaSuccess ? pomcpp::wl::PHASE_SLOTS : -(int)err;
+#else
+  (void)out;
+  return 0;
+#endif
 }
 
 const char* pomcpp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,0 +1,251 @@
+// A host stand-in for <cuda_runtime.h>, for the tests only: with this
+// directory first on the include path, g++ compiles fused_step.cu as plain
+// C++ and the warp-layout chunk kernel runs on the CPU, one warp at a time,
+// so that tests/test_torch_csrc.py can hold the kernel's own source against
+// the plain PyTorch version where there is no card.  No part of the port
+// loads this build; on a CUDA tensor the wrappers launch the nvcc build.
+//
+// A warp is 32 fibers (ucontext) that run the kernel body in turn.  Every
+// *_sync intrinsic is a rendezvous: a lane deposits its operand and yields
+// until all 32 lanes have arrived at the SAME kind of intrinsic, then each
+// takes its result.  A lane that returns, or a lane that waits at another
+// kind of intrinsic, while others wait is the undefined behaviour of a
+// full-mask intrinsic under divergence; the emulator reports it
+// (cudaErrorLaunchFailure from cudaGetLastError) instead of hanging.
+// Between two intrinsics a lane runs alone, far ahead of the others, so a
+// missing __syncwarp() around shared memory shows as a wrong result.
+// CTA-wide barriers are not emulated: a kernel that reaches one aborts.
+#pragma once
+
+#include <ucontext.h>
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <vector>
+
+#define __device__
+#define __global__
+#define __host__
+#define __forceinline__ inline
+#define __shared__ static
+#define __launch_bounds__(...)
+#define POMCPP_HOST_EMU 1
+
+using std::abs;
+using std::max;
+using std::min;
+
+struct uint4 { uint32_t x, y, z, w; };
+struct int4 { int x, y, z, w; };
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return uint4{x, y, z, w}; }
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 719;
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == cudaSuccess ? "no error" : e == cudaErrorInvalidValue ? "invalid argument"
+                                                                   : "emulated launch failure";
+}
+
+namespace emu {
+
+constexpr int WARP = 32;
+enum Kind { K_SHFL, K_UP, K_DOWN, K_BALLOT, K_OR, K_ADD, K_MIN, K_SYNCWARP };
+
+struct Idx { unsigned x, y, z; };
+
+struct Warp {
+  ucontext_t sched, lane[WARP];
+  std::vector<char> stack[WARP];
+  bool finished[WARP];
+  int cur = 0, arrived = 0, kind[WARP];
+  unsigned gen = 0, progress = 0, in[WARP], aux[WARP], out[WARP];
+  Idx tid{0, 0, 0}, bid{0, 0, 0};
+  int tid_base = 0;
+  const std::function<void()>* body = nullptr;
+  int error = cudaSuccess;
+};
+
+inline Warp& warp() {
+  static Warp w;
+  return w;
+}
+
+inline const Idx& thread_idx() {
+  Warp& w = warp();
+  w.tid.x = (unsigned)(w.tid_base + w.cur);
+  return w.tid;
+}
+inline const Idx& block_idx() { return warp().bid; }
+
+inline void lane_entry() {
+  Warp& w = warp();
+  (*w.body)();
+  w.finished[w.cur] = true;
+  ++w.progress;
+  swapcontext(&w.lane[w.cur], &w.sched);
+}
+
+inline void resolve(Warp& w) {
+  const int k = w.kind[0];
+  for (int i = 1; i < WARP; ++i)
+    if (w.kind[i] != k) w.error = cudaErrorLaunchFailure;
+  unsigned ballot = 0, acc_or = 0, acc_add = 0, acc_min = ~0u;
+  for (int i = 0; i < WARP; ++i) {
+    if (w.in[i]) ballot |= 1u << i;
+    acc_or |= w.in[i];
+    acc_add += w.in[i];
+    acc_min = std::min(acc_min, w.in[i]);
+  }
+  for (int i = 0; i < WARP; ++i) {
+    int src = i;
+    switch (k) {
+      case K_SHFL: src = (int)(w.aux[i] & 31u); break;
+      case K_UP: src = i - (int)w.aux[i] >= 0 ? i - (int)w.aux[i] : i; break;
+      case K_DOWN: src = i + (int)w.aux[i] < WARP ? i + (int)w.aux[i] : i; break;
+      default: break;
+    }
+    w.out[i] = k == K_BALLOT ? ballot : k == K_OR ? acc_or : k == K_ADD ? acc_add
+               : k == K_MIN ? acc_min : w.in[src];
+  }
+}
+
+// The rendezvous of one *_sync intrinsic.
+inline unsigned collective(int kind, unsigned mask, unsigned v, unsigned a) {
+  Warp& w = warp();
+  const int me = w.cur;
+  if (mask != 0xffffffffu) w.error = cudaErrorLaunchFailure;
+  w.in[me] = v;
+  w.aux[me] = a;
+  w.kind[me] = kind;
+  const unsigned my_gen = w.gen;
+  ++w.progress;
+  if (++w.arrived == WARP) {
+    resolve(w);
+    w.arrived = 0;
+    ++w.gen;
+  }
+  while (w.gen == my_gen) swapcontext(&w.lane[me], &w.sched);
+  return w.out[me];
+}
+
+// Run `body` as the 32 lanes of one warp.
+inline void run_warp(int block, int tid_base, const std::function<void()>& body) {
+  Warp& w = warp();
+  w.bid.x = (unsigned)block;
+  w.tid_base = tid_base;
+  w.body = &body;
+  w.arrived = 0;
+  for (int i = 0; i < WARP; ++i) {
+    if (w.stack[i].empty()) w.stack[i].resize(256 * 1024);
+    w.finished[i] = false;
+    getcontext(&w.lane[i]);
+    w.lane[i].uc_stack.ss_sp = w.stack[i].data();
+    w.lane[i].uc_stack.ss_size = w.stack[i].size();
+    w.lane[i].uc_link = &w.sched;
+    makecontext(&w.lane[i], lane_entry, 0);
+  }
+  for (;;) {
+    const unsigned before = w.progress;
+    int running = 0;
+    for (int i = 0; i < WARP; ++i) {
+      if (w.finished[i]) continue;
+      ++running;
+      w.cur = i;
+      swapcontext(&w.sched, &w.lane[i]);
+    }
+    if (running == 0) return;
+    if (w.progress == before) {  // divergent intrinsic: nobody can move
+      w.error = cudaErrorLaunchFailure;
+      return;
+    }
+  }
+}
+
+template <typename F>
+inline void launch(int grid, int block, F&& kernel_call) {
+  const std::function<void()> body = kernel_call;
+  for (int b = 0; b < grid && warp().error == cudaSuccess; ++b)
+    for (int t = 0; t < block && warp().error == cudaSuccess; t += WARP) run_warp(b, t, body);
+}
+
+}  // namespace emu
+
+#define threadIdx (emu::thread_idx())
+#define blockIdx (emu::block_idx())
+
+inline cudaError_t cudaGetLastError() {
+  const int e = emu::warp().error;
+  emu::warp().error = cudaSuccess;
+  return e;
+}
+
+inline long long clock64() { return 0; }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  const unsigned long long old = *p;
+  *p += v;
+  return old;
+}
+template <typename T>
+inline cudaError_t cudaMemcpyFromSymbol(void* dst, const T& symbol, size_t n) {
+  std::memcpy(dst, &symbol, n);
+  return cudaSuccess;
+}
+template <typename T>
+inline cudaError_t cudaMemcpyToSymbol(T& symbol, const void* src, size_t n) {
+  std::memcpy(&symbol, src, n);
+  return cudaSuccess;
+}
+
+// No SM here: the query answers "none resident".
+template <typename K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 0;
+  return cudaSuccess;
+}
+
+inline int __shfl_sync(unsigned m, int v, int src) {
+  return (int)emu::collective(emu::K_SHFL, m, (unsigned)v, (unsigned)src);
+}
+inline int __shfl_up_sync(unsigned m, int v, unsigned d) {
+  return (int)emu::collective(emu::K_UP, m, (unsigned)v, d);
+}
+inline int __shfl_down_sync(unsigned m, int v, unsigned d) {
+  return (int)emu::collective(emu::K_DOWN, m, (unsigned)v, d);
+}
+inline unsigned __ballot_sync(unsigned m, int p) {
+  return emu::collective(emu::K_BALLOT, m, p != 0, 0);
+}
+inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
+inline unsigned __reduce_or_sync(unsigned m, unsigned v) {
+  return emu::collective(emu::K_OR, m, v, 0);
+}
+inline unsigned __reduce_add_sync(unsigned m, unsigned v) {
+  return emu::collective(emu::K_ADD, m, v, 0);
+}
+inline unsigned __reduce_min_sync(unsigned m, unsigned v) {
+  return emu::collective(emu::K_MIN, m, v, 0);
+}
+inline void __syncwarp(unsigned m = 0xffffffffu) { emu::collective(emu::K_SYNCWARP, m, 0, 0); }
+
+[[noreturn]] inline void emu_no_cta_barrier() {
+  std::fprintf(stderr, "host emulation: CTA-wide barriers are not emulated\n");
+  std::abort();
+}
+inline void __syncthreads() { emu_no_cta_barrier(); }
+inline int __syncthreads_or(int) { emu_no_cta_barrier(); }
+
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned n) {
+  return (unsigned)(((((uint64_t)hi) << 32) | lo) >> (n & 31u));
+}
+inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
+
+// kernel<<<grid, block, 0, stream>>>(args...) of the real build.
+#define POMCPP_LAUNCH(kernel, grid, block, stream, ...) \
+  emu::launch((grid), (block), [&] { kernel(__VA_ARGS__); })

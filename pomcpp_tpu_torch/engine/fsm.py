@@ -49,13 +49,14 @@ def fsm_act_plain(cs: CellState, fsm_state, rand):
     return moves, simple_state_to_fsm(asts2)
 
 
-def fsm_inputs(fsm_state, b: int):
-    """The ten FSM arrays as contiguous int32 CUDA tensors [b, 4]."""
+def fsm_inputs(fsm_state, b: int, device):
+    """The ten FSM arrays as contiguous int32 tensors [b, 4] on ``device``
+    (the device of the state arrays they are launched with)."""
     arrays = []
     for t in fsm_state:
         t = t.to(I32).contiguous()
-        if not t.is_cuda or t.shape != (b, AGENT_COUNT):
-            raise ValueError(f"FSM state arrays must be i32[{b}, 4] on the card")
+        if t.device != device or t.shape != (b, AGENT_COUNT):
+            raise ValueError(f"FSM state arrays must be i32[{b}, 4] on {device}")
         arrays.append(t)
     if len(arrays) != 10:
         raise ValueError("the FSM state has ten arrays")
@@ -65,9 +66,9 @@ def fsm_inputs(fsm_state, b: int):
 def _fsm_act_cuda(cs: CellState, fsm_state, rand):
     from .fused_step import _kernel_inputs
 
-    ins = _kernel_inputs(cs)
+    ins = _kernel_inputs(cs, "cuda")
     b = ins[0].shape[0]
-    fin = fsm_inputs(fsm_state, b)
+    fin = fsm_inputs(fsm_state, b, ins[0].device)
     rand = rand.to(I32).contiguous()
     if rand.shape != (b, AGENT_COUNT) or not rand.is_cuda:
         raise ValueError(f"rand must be i32[{b}, 4] on the card")
@@ -78,7 +79,7 @@ def _fsm_act_cuda(cs: CellState, fsm_state, rand):
         _ext.state_view(ins), _ext.fsm_view(fin), _ext.fsm_view(fout),
         rand.data_ptr(), moves.data_ptr(), b,
         torch.cuda.current_stream().cuda_stream,
-    ))
+    ), lib.pomcpp_error_string)
     _ext.LAUNCHES["fsm_act_kernel"] += 1
     return moves, FsmState(*fout)
 

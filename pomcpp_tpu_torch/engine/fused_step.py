@@ -275,13 +275,14 @@ def _to_device(cs: CellState, device) -> CellState:
     return CellState(*(t.to(device) for t in cs))
 
 
-def _kernel_inputs(cs: CellState):
-    """The 14 kernel-side arrays as contiguous int32 CUDA tensors."""
+def _kernel_inputs(cs: CellState, device_type: str):
+    """The 14 kernel-side arrays as contiguous int32 tensors, all of which
+    must lie on a device of ``device_type`` (the launcher's)."""
     arrays = []
     for name in PLANE_FIELDS + AGENT_FIELDS:
         t = getattr(cs, name).to(I32).contiguous()
-        if not t.is_cuda:
-            raise ValueError(f"{name} is not on a CUDA device")
+        if t.device.type != device_type:
+            raise ValueError(f"{name} is not on a {device_type} device")
         arrays.append(t)
     b = cs.board.shape[0]
     for t, width in zip(arrays, (NUM_CELLS,) * 7 + (AGENT_COUNT,) * 7):
@@ -300,7 +301,7 @@ def _kernel_outputs(cs: CellState, outs, timestep) -> CellState:
 
 
 def _fused_step_cuda(cs: CellState, moves) -> CellState:
-    ins = _kernel_inputs(cs)
+    ins = _kernel_inputs(cs, "cuda")
     b = ins[0].shape[0]
     moves = moves.to(I32).contiguous()
     if moves.shape != (b, AGENT_COUNT) or not moves.is_cuda:
@@ -310,14 +311,27 @@ def _fused_step_cuda(cs: CellState, moves) -> CellState:
     _ext.check(lib.pomcpp_fused_step(
         _ext.state_view(ins), _ext.state_view(outs), moves.data_ptr(), b,
         torch.cuda.current_stream().cuda_stream,
-    ))
+    ), lib.pomcpp_error_string)
     _ext.LAUNCHES["fused_step_kernel"] += 1
     return _kernel_outputs(cs, outs, cs.timestep)
 
 
 def _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record, auto_reset,
                         reset_boards, fsm_state, inject_slots, prng_rand):
-    ins = _kernel_inputs(cs)
+    return _rollout_chunk_launch(
+        _ext.lib(), torch.cuda.current_stream().cuda_stream, cs, seed, steps,
+        n_moves, moves, record, auto_reset, reset_boards, fsm_state,
+        inject_slots, prng_rand)
+
+
+def _rollout_chunk_launch(lib, stream, cs, seed, steps, n_moves, moves, record,
+                          auto_reset, reset_boards, fsm_state, inject_slots,
+                          prng_rand):
+    """Marshal the arguments and call the chunk launcher of ``lib``: an
+    ``nvcc`` build on the card's stream, which counts as a launch, or, in
+    the tests, the host build of the same source on CPU tensors
+    (``stream=None``), which does not."""
+    ins = _kernel_inputs(cs, "cpu" if stream is None else "cuda")
     b, dev = ins[0].shape[0], ins[0].device
     outs = [torch.empty_like(t) for t in ins]
     mv_ptr = rb_ptr = rh_ptr = rm_ptr = rd_ptr = None
@@ -338,18 +352,16 @@ def _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record, auto_reset,
         rec_moves = torch.empty((steps, b, AGENT_COUNT), dtype=I32, device=dev)
         rec_done = torch.empty((steps, b), dtype=I32, device=dev)
         rm_ptr, rd_ptr = rec_moves.data_ptr(), rec_done.data_ptr()
-    lib = _ext.lib()
-    stream = torch.cuda.current_stream().cuda_stream
     key0, key1 = seed & _MASK32, (seed >> 32) & _MASK32
     if fsm_state is None:
         _ext.check(lib.pomcpp_rollout_chunk(
             _ext.state_view(ins), _ext.state_view(outs), b, steps, n_moves,
             key0, key1, mv_ptr, rb_ptr, rh_ptr, int(auto_reset), rm_ptr,
             rd_ptr, stream,
-        ))
-        _ext.LAUNCHES["rollout_chunk_kernel"] += 1
+        ), lib.pomcpp_error_string)
+        kernel = "rollout_chunk_kernel"
     else:
-        fin = fsm_inputs(fsm_state, b)
+        fin = fsm_inputs(fsm_state, b, dev)
         fout = [torch.empty_like(t) for t in fin]
         inject_mask = sum(1 << s for s in set(inject_slots))
         _ext.check(lib.pomcpp_rollout_chunk_simple(
@@ -357,8 +369,10 @@ def _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record, auto_reset,
             _ext.fsm_view(fout), b, steps, key0, key1, mv_ptr, inject_mask,
             int(prng_rand), rb_ptr, rh_ptr, int(auto_reset), rm_ptr, rd_ptr,
             stream,
-        ))
-        _ext.LAUNCHES["rollout_chunk_simple_kernel"] += 1
+        ), lib.pomcpp_error_string)
+        kernel = "rollout_chunk_simple_kernel"
+    if stream is not None:
+        _ext.LAUNCHES[kernel] += 1
     out = (_kernel_outputs(cs, outs, cs.timestep + steps),)
     if record:
         out += (rec_moves, rec_done != 0)

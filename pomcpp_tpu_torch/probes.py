@@ -291,9 +291,10 @@ def _probe_elem_cuda(x, op, k, layout, rows, tile):
         raise ValueError("x must be [rows, width] with width <= 128")
     x = _ready(x, x.dtype, tuple(x.shape), "x")
     out = torch.empty_like(x)
-    _ext.check(_ext.probes_lib().pomcpp_probe_elem(
+    lib = _ext.probes_lib()
+    _ext.check(lib.pomcpp_probe_elem(
         ELEM_OPS[op], lay, size, x.data_ptr(), out.data_ptr(), x.shape[0],
-        x.shape[1], k, rows, tile, stream), probes=True)
+        x.shape[1], k, rows, tile, stream), lib.pomcpp_probes_error_string)
     _ext.LAUNCHES["probe_elem_kernel"] += 1
     return out
 
@@ -312,11 +313,12 @@ def _probe_shift_cuda(plane, agents, op, k, layout, rows, tile):
     size = _int_type(plane, op)
     plane, agents, a_out, n = _plane_and_agents(plane, agents, plane.dtype)
     p_out = torch.empty_like(plane)
-    _ext.check(_ext.probes_lib().pomcpp_probe_shift(
+    lib = _ext.probes_lib()
+    _ext.check(lib.pomcpp_probe_shift(
         SHIFT_OPS[op], lay, size, plane.data_ptr(), p_out.data_ptr(),
         None if agents is None else agents.data_ptr(),
         None if agents is None else a_out.data_ptr(), n, k, rows, tile,
-        stream), probes=True)
+        stream), lib.pomcpp_probes_error_string)
     _ext.LAUNCHES["probe_shift_kernel"] += 1
     return p_out if agents is None else (p_out, a_out)
 
@@ -325,11 +327,12 @@ def _probe_reduce_cuda(plane, agents, op, k, layout, rows, tile):
     lay, stream = _launch_args(layout, k, rows, tile)
     plane, agents, a_out, n = _plane_and_agents(plane, agents, I32)
     p_out = torch.empty_like(plane)
-    _ext.check(_ext.probes_lib().pomcpp_probe_reduce(
+    lib = _ext.probes_lib()
+    _ext.check(lib.pomcpp_probe_reduce(
         REDUCE_OPS[op], lay, plane.data_ptr(), p_out.data_ptr(),
         None if agents is None else agents.data_ptr(),
         None if agents is None else a_out.data_ptr(), n, k, rows, tile,
-        stream), probes=True)
+        stream), lib.pomcpp_probes_error_string)
     _ext.LAUNCHES["probe_reduce_kernel"] += 1
     return p_out if agents is None else (p_out, a_out)
 
@@ -340,9 +343,10 @@ def _probe_dot_cuda(x, w, op, k, layout, rows, tile):
     x = _ready(x, torch.float32 if op == "dot" else I32, (n, LANES), "x")
     w = _ready(w, torch.float32, (LANES, LANES), "w")
     out = torch.empty_like(x)
-    _ext.check(_ext.probes_lib().pomcpp_probe_dot(
+    lib = _ext.probes_lib()
+    _ext.check(lib.pomcpp_probe_dot(
         DOT_OPS[op], lay, x.data_ptr(), w.data_ptr(), out.data_ptr(), n, k,
-        rows, tile, stream), probes=True)
+        rows, tile, stream), lib.pomcpp_probes_error_string)
     _ext.LAUNCHES["probe_dot_kernel"] += 1
     return out
 

@@ -52,9 +52,15 @@ def test_step_kernel_matches_plain(cuda):
         assert not diff_fields(k, p, skip=()), f"step {t}"
 
 
+# One board per warp, four warps per CTA: batches that fill the last CTA,
+# leave it ragged (b % 4 != 0) and do not fill one CTA (b < 4).
+CHUNK_BATCHES = [256, 1021, 5, 3, 1]
+
+
+@pytest.mark.parametrize("b", CHUNK_BATCHES)
 @pytest.mark.parametrize("policy", ["harmless", "random"])
-def test_chunk_kernel_matches_plain(cuda, policy):
-    cs, _ = _batch(cuda, 256, 2)
+def test_chunk_kernel_matches_plain(cuda, policy, b):
+    cs, _ = _batch(cuda, b, 2)
     k = rollout_chunk(cs, 7, 48, policy, record=True)
     p = rollout_chunk_plain(cs, 7, 48, policy, record=True)
     assert not diff_fields(k[0], p[0], skip=())
@@ -74,11 +80,12 @@ def test_fsm_act_kernel_matches_plain(cuda):
         cs = fused_step_plain(cs, torch.where(cs.agent_dead, 0, mp))
 
 
+@pytest.mark.parametrize("b", CHUNK_BATCHES)
 @pytest.mark.parametrize("inject_slots,prng_rand", [((), False), ((0,), True)])
-def test_simple_chunk_kernel_matches_plain(cuda, inject_slots, prng_rand):
-    cs, gen = _batch(cuda, 256, 4)
-    fsm = simple_fsm_state_init(256, cuda)
-    moves = torch.randint(0, 6, (48, 256, 4), generator=gen, device=cuda,
+def test_simple_chunk_kernel_matches_plain(cuda, inject_slots, prng_rand, b):
+    cs, gen = _batch(cuda, b, 4)
+    fsm = simple_fsm_state_init(b, cuda)
+    moves = torch.randint(0, 6, (48, b, 4), generator=gen, device=cuda,
                           dtype=torch.int32) if inject_slots else None
     kw = dict(record=True, fsm_state=fsm, moves=moves,
               inject_slots=inject_slots, prng_rand=prng_rand)
