@@ -8,11 +8,12 @@ Phases (any failure exits non-zero before the result line):
 
 1. build   -- compile ``pomcpp_tpu_torch/csrc`` with nvcc for sm_90a and
               print each kernel's ``-Xptxas -v`` registers, stack, spill and
-              shared-memory bytes, and the chunk kernel's resident boards
-              per SM as the CUDA runtime reports them;
+              shared-memory bytes, and the warp-layout kernels' resident
+              boards per SM as the CUDA runtime reports them;
 2. step    -- the fused step kernel vs ``fused_step_plain``, bit for bit:
-              every 6^4 joint move on a kick-heavy state, and 4096 boards
-              with mixed kick stepped 50 steps with host-drawn moves;
+              every 6^4 joint move on a kick-heavy state and on a 2x2 ring
+              of agents, 4096 boards with mixed kick stepped 50 steps with
+              host-drawn moves, and ragged and tiny batches (1021, 5, 3, 1);
 3. fsm     -- the SimpleAgent act kernel vs ``fsm_act_plain``, bit for bit
               (moves and the ten FSM arrays): 4096 generated boards stepped
               30 acts, close-quarters boards and boards with dead agents;
@@ -41,25 +42,35 @@ Phases (any failure exits non-zero before the result line):
 7. env     -- the env layer.  Held, every ``EnvState`` field bit for bit
               between the card and the same call on CPU tensors (the plain
               versions), 1024 boards x 64 steps with resets, draws and wins:
-              ``env_step_auto_reset_batch(fused=True)`` with injected fresh
-              boards, with the port's own Philox resets and in team mode;
-              ``env_step_auto_reset_batch_fsm(learner_slots=(0,))`` with
-              ``rand_moves`` and with ``seed``.  Then its path at full
-              width, 16384 boards from ``env_reset``: 256 fused env steps,
-              256 mixed-control env steps (three in-kernel SimpleAgents),
+              ``env_step_auto_reset_batch(fused=True)`` (the step and env
+              kernel ``fused_step_kernel<true>``) with injected fresh
+              boards, with the port's own Philox resets and
+              ``randomize_positions``, in team mode, and from every board
+              done; ``env_step_auto_reset_batch_fsm(learner_slots=(0,))``
+              (the simple chunk, then ``env_merge_kernel``) with
+              ``rand_moves``, with ``seed`` in team mode with
+              ``randomize_positions``, and with injected fresh boards.
+              Then its path at full width, 16384 boards from
+              ``env_reset``: 256 fused env steps, 256 mixed-control env
+              steps (three in-kernel SimpleAgents), each call's launches
+              counted (one, and two) and a few calls run under
+              ``torch.cuda.set_sync_debug_mode("error")`` (no host read),
               ``observe_ego`` for all four agents on 64 steps, and 64 steps
               of ``PommermanEnv(batch_size=1024, fog="ego")`` through
-              numpy; launch counts reset before and read after;
-8. probes  -- the four probe kernels: every pattern in both layouts against
+              numpy; launch counts reset before and read after; then the
+              env kernels' device time against their plain versions;
+8. probes  -- the five probe kernels: every pattern in both layouts against
               its plain version, bit for bit, on seeded inputs at a small
               loop count (and with ``rows=32``, and on a ragged row count),
-              then ``probes.run_report`` at the scripts' sizes (launch
-              counts reset before and read after), then every pattern's
-              plain version at those sizes, timed and compared again.
+              ``dot`` on random floats within its stated tolerance, then
+              ``probes.run_report`` at the scripts' sizes (launch counts
+              reset before and read after), then every pattern's plain
+              version at those sizes, timed and compared again.
 
 ``--profile`` builds, runs the env path at full width and then a
-``torch.profiler`` pass over 32 fused env steps, prints the device time by
-kernel; then it builds the chunk kernel with its phase clocks
+``torch.profiler`` pass over 32 fused and 32 mixed-control env steps, prints
+the kernels and copies per step, the device idle share and the device time
+by kernel; then it builds the chunk kernel with its phase clocks
 (``-DPOMCPP_PHASE_CLOCKS``), runs two chunks of each policy at the main
 path's size, holds their result to the plain build's and prints the share of
 each phase of a step in the summed warp cycles.  It exits with code 4 and
@@ -85,7 +96,12 @@ MAIN_CHUNKS = 2         # chunks per policy on the main path
 MAIN_STEPS = 4          # single fused steps on the main path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 memory rate
 OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor peak
-STATE_BYTES = 7 * 121 * 4 + 7 * 4 * 4   # one board's 14 state arrays
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor-core dense peak
+STATE_BYTES = 7 * 121 * 4 + 7 * 4 * 4   # one board's 14 state arrays, int32
+# One board's CellState in its own dtypes (bool as a byte) and the rest of
+# its EnvState (done, winner, is_draw, key).
+GAME_BYTES = 7 * 121 * 4 + 5 * 4 * 4 + 2 * 4 + 2 * 4
+ENV_BYTES = 1 + 4 + 1 + 3 * 8
 FSM_BYTES = 10 * 4 * 4                  # one board's ten FSM arrays
 MOVE_BYTES = 4 * 4
 PLAIN_SIMPLE_STEPS = 16   # steps of the plain simple chunk in the timing
@@ -98,6 +114,10 @@ PROBE_ROWS = 16384        # the scripts' 128 blocks x 128 rows
 # Chunk kernel ms at BOARDS x CHUNK in the layout of one board per CTA, as
 # PERF.md records them (an NVIDIA H100 80GB HBM3 at 700.00 W).
 CTA_LAYOUT_MS = {"harmless": 52.25, "random": 78.629, "simple": 130.949}
+# Before the env kernels (PERF.md, same card): ms per env step at 16384
+# boards, and the one-step kernel of one board per CTA.
+ENV_STEP_MS_BEFORE = {"fused": 4.163, "fsm": 4.339}
+STEP_KERNEL_MS_BEFORE = 0.253
 
 
 def log(msg: str) -> None:
@@ -136,6 +156,30 @@ def kick_heavy_state(device):
         agent_bomb_count=torch.tensor([[1, 1, 0, 0]], **i32),
         agent_can_kick=torch.ones((1, 4), dtype=torch.bool, device=device),
     )
+
+
+def ring_state(device, dead=()):
+    """Four agents on a 2x2 square (a ring of moves without a movement
+    root), ``dead`` of them dead."""
+    import torch
+
+    from pomcpp_tpu_torch.engine.cellular import empty_cell_state
+
+    one = empty_cell_state(1, device)
+    board = one.board.clone()
+    ring = ((4, 4), (5, 4), (5, 5), (4, 5))
+    for i, (x, y) in enumerate(ring):
+        board[0, x + 11 * y] = 10 + i
+    gone = torch.tensor([[i in dead for i in range(4)]], device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return kill(one._replace(
+        board=board, agent_x=torch.tensor([[x for x, _ in ring]], **i32),
+        agent_y=torch.tensor([[y for _, y in ring]], **i32)), gone)
+
+
+def copies(cs, n):
+    """``n`` copies of a one-board state."""
+    return type(cs)(*(t.expand((n,) + t.shape[1:]).contiguous() for t in cs))
 
 
 def max_abs_err(a, b) -> int:
@@ -208,8 +252,11 @@ def check_invariants(cs) -> None:
 
 ENGINE_KERNELS = ("fused_step_kernel", "rollout_chunk_kernel",
                   "rollout_chunk_simple_kernel", "fsm_act_kernel")
+ENV_KERNELS = ("fused_env_step_kernel", "env_merge_kernel",
+               "rollout_chunk_simple_kernel")
 PROBE_KERNELS = ("probe_elem_kernel", "probe_shift_kernel",
-                 "probe_reduce_kernel", "probe_dot_kernel")
+                 "probe_reduce_kernel", "probe_dot_kernel",
+                 "probe_dot_tc_kernel")
 
 
 def expect_launched(launches: dict, names, path: str) -> None:
@@ -242,11 +289,18 @@ class Timer:
 KERNEL_ENTRIES = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
                   ("rollout_chunk_kernelILb0", "rollout_chunk_kernel"),
                   ("fsm_act_kernel", "fsm_act_kernel"),
-                  ("fused_step_kernel", "fused_step_kernel"),
+                  ("fused_step_kernelILb1", "fused_env_step_kernel"),
+                  ("fused_step_kernelILb0", "fused_step_kernel"),
+                  ("env_merge_kernel", "env_merge_kernel"),
                   ("probe_elem_kernel", "probe_elem_kernel"),
                   ("probe_shift_kernel", "probe_shift_kernel"),
                   ("probe_reduce_", "probe_reduce_kernel"),
+                  ("probe_dot_tc_kernel", "probe_dot_tc_kernel"),
                   ("probe_dot_kernel", "probe_dot_kernel"))
+# The warp-layout kernels, by their index in pomcpp_ctas_per_sm.
+WARP_LAYOUT_KERNELS = ("rollout_chunk_kernel", "rollout_chunk_simple_kernel",
+                       "fused_step_kernel", "fused_env_step_kernel",
+                       "env_merge_kernel")
 
 
 def kernel_resources(build_log: str) -> dict:
@@ -280,14 +334,13 @@ def kernel_resources(build_log: str) -> dict:
     return res
 
 
-def chunk_residency(res: dict, lib) -> dict:
-    """Add to the chunk kernels' rows of ``res`` what the CUDA runtime says
-    of their residency, for the launch configuration the launchers use:
-    one board per warp."""
+def warp_residency(res: dict, lib) -> dict:
+    """Add to the warp-layout kernels' rows of ``res`` what the CUDA runtime
+    says of their residency, for the launch configuration the launchers
+    use: one board per warp."""
     warps = lib.pomcpp_chunk_warps()
-    for simple, name in ((0, "rollout_chunk_kernel"),
-                         (1, "rollout_chunk_simple_kernel")):
-        ctas = lib.pomcpp_chunk_ctas_per_sm(simple)
+    for k, name in enumerate(WARP_LAYOUT_KERNELS):
+        ctas = lib.pomcpp_ctas_per_sm(k)
         if ctas <= 0:
             raise RuntimeError(f"{name}: no CTA fits on an SM ({ctas})")
         res.setdefault(name, {}).update(
@@ -308,9 +361,12 @@ def phase_build():
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     # The compiler's log is kept beside each library, so a run that finds
     # them built reports the same resources as the run that built them.
-    res = chunk_residency(kernel_resources(_ext.build_log()), lib)
+    res = warp_residency(kernel_resources(_ext.build_log()), lib)
     for name, row in res.items():
         log(f"[build] {name}: {json.dumps(row)}")
+    for line in _ext.build_log().splitlines():   # e.g. serialized wgmma
+        if "Performance" in line or "wgmma" in line:
+            log(f"[build] ptxas: {line.strip()}")
     return res
 
 
@@ -323,14 +379,19 @@ def phase_step(dev):
     n = 6 ** 4
     codes = torch.arange(n, device=dev)
     moves = torch.stack([(codes // 6 ** i) % 6 for i in range(4)], 1).int()
-    cs = kick_heavy_state(dev)
-    csb = type(cs)(*(t.expand((n,) + t.shape[1:]).contiguous() for t in cs))
+    csb = copies(kick_heavy_state(dev), n)
     for depth in range(2):
         k = fused_step(csb, moves, device=dev)
         p = fused_step_plain(csb, moves)
         expect_equal(f"step sweep depth {depth}", k, p)
         csb = p
-    log("[step] 6^4 joint-move sweep (2 steps deep): kernel == plain")
+    for gone in ((), (0,), (2,)):
+        csb = copies(ring_state(dev, gone), n)
+        expect_equal(f"step ring sweep dead={gone}",
+                     fused_step(csb, moves, device=dev),
+                     fused_step_plain(csb, moves))
+    log("[step] 6^4 joint-move sweeps: kick-heavy state (2 steps deep), 2x2 "
+        "ring with none, agent 0 and agent 2 dead: kernel == plain")
 
     b = 4096
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -346,6 +407,18 @@ def phase_step(dev):
         expect_equal(f"step batch t={t}", k, p)
     log(f"[step] {b} boards x 50 steps, mixed kick: kernel == plain "
         f"({int(p.agent_dead.sum())} agents dead at the end)")
+
+    # Ragged and tiny batches: the last CTA of four warps partly or mostly
+    # without a board.
+    for b in (1021, 5, 3, 1):
+        k = p = close_quarters(random_cell_state(b, generator=gen), gen)
+        for t in range(24):
+            mv = torch.randint(0, 6, (b, 4), generator=gen, device=dev,
+                               dtype=torch.int32)
+            k = fused_step(k, mv, device=dev)
+            p = fused_step_plain(p, mv)
+            expect_equal(f"step {b} boards t={t}", k, p)
+    log("[step] ragged: 1021, 5, 3 and 1 boards x 24 steps: kernel == plain")
 
 
 def phase_fsm(dev):
@@ -386,7 +459,6 @@ def phase_chunk(dev):
     import torch
 
     from pomcpp_tpu_torch.core.board_gen import random_cell_state
-    from pomcpp_tpu_torch.engine.cellular import empty_cell_state
     from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
     from pomcpp_tpu_torch.engine.fused_step import (
         rollout_chunk,
@@ -462,8 +534,7 @@ def phase_chunk(dev):
     moves = torch.randint(0, 6, (steps, n, 4), generator=gen, device=dev,
                           dtype=torch.int32)
     moves[0] = torch.stack([(codes // 6 ** i) % 6 for i in range(4)], 1).int()
-    cs = kick_heavy_state(dev)
-    cs = type(cs)(*(t.expand((n,) + t.shape[1:]).contiguous() for t in cs))
+    cs = copies(kick_heavy_state(dev), n)
     for policy, kw in (
         ("random", {}),
         ("simple", dict(fsm_state=simple_fsm_state_init(n, dev),
@@ -484,21 +555,8 @@ def phase_chunk(dev):
 
     # Four agents on a 2x2 square, every joint move: the rings without a
     # movement root, with all four alive and with one dead.
-    ring = ((4, 4), (5, 4), (5, 5), (4, 5))
     for gone in ((), (2,)):
-        one = empty_cell_state(1, dev)
-        board = one.board.clone()
-        for i, (x, y) in enumerate(ring):
-            board[0, x + 11 * y] = 10 + i
-        dead = torch.tensor([[i in gone for i in range(4)]], device=dev)
-        one = kill(one._replace(
-            board=board,
-            agent_x=torch.tensor([[x for x, _ in ring]], dtype=torch.int32,
-                                 device=dev),
-            agent_y=torch.tensor([[y for _, y in ring]], dtype=torch.int32,
-                                 device=dev)), dead)
-        cs = type(one)(*(t.expand((n,) + t.shape[1:]).contiguous()
-                         for t in one))
+        cs = copies(ring_state(dev, gone), n)
         k = rollout_chunk(cs, 5, 2, "random", moves=moves[:2], record=True,
                           auto_reset=False, device=dev)
         p = rollout_chunk_plain(cs, 5, 2, "random", moves=moves[:2],
@@ -635,9 +693,12 @@ def phase_timing(inputs):
             k = fused_step(cs, mv)
     with Timer() as tp:
         p = fused_step_plain(cs, mv)
-    out["step"] = (tk.ms() / reps, tp.ms(), expect_equal("main step", k, p))
-    log(f"[timing] step {BOARDS}: kernel {tk.ms() / reps:.3f} ms, "
-        f"plain {tp.ms():.3f} ms, kernel == plain")
+    kernel_ms = device_ms(lambda: fused_step(cs, mv), reps)
+    out["step"] = (kernel_ms, tp.ms(), expect_equal("main step", k, p),
+                   tk.ms() / reps)
+    log(f"[timing] step {BOARDS}: kernel {kernel_ms:.4f} ms (device; "
+        f"{STEP_KERNEL_MS_BEFORE} ms one board per CTA), entry point "
+        f"{tk.ms() / reps:.3f} ms, plain {tp.ms():.3f} ms, kernel == plain")
 
     cs, seed, fsm = inputs["simple"]
     with Timer() as tk:
@@ -684,10 +745,11 @@ def expect_env_equal(what: str, a, b) -> None:
             raise AssertionError(f"{what}: card and plain differ in {name}")
 
 
-def env_held_start(b: int, seed: int):
+def env_held_start(b: int, seed: int, all_done: bool = False):
     """CPU EnvState with boards that win at once (one agent left), boards
     with one agent of each team left, one team left, nobody left, and
-    boards already done; the rest play on."""
+    boards already done (every board, with ``all_done``); the rest play
+    on."""
     import torch
 
     from pomcpp_tpu_torch.env.environment import env_reset
@@ -699,7 +761,7 @@ def env_held_start(b: int, seed: int):
     dead[n:2 * n, 2:] = True
     dead[2 * n:3 * n, 0] = dead[2 * n:3 * n, 2] = True
     dead[3 * n:4 * n] = True
-    done = torch.zeros(b, dtype=torch.bool)
+    done = torch.full((b,), all_done)
     done[4 * n:5 * n] = True
     return es._replace(game=kill(es.game, dead), done=done)
 
@@ -729,17 +791,19 @@ def phase_env_held(dev):
         seen["wins"] += int((new & ~es.is_draw).sum())
         seen["draws"] += int((new & es.is_draw).sum())
 
-    for what, kw, inject in (
-        ("fused, injected fresh boards", dict(max_steps=24), True),
+    for what, kw, inject, all_done in (
+        ("fused, injected fresh boards", dict(max_steps=24), True, False),
         ("fused, own Philox resets, randomize_positions",
-         dict(max_steps=24, randomize_positions=True), False),
+         dict(max_steps=24, randomize_positions=True), False, False),
         ("fused, team mode, own resets", dict(max_steps=30, team_mode=True),
-         False),
+         False, False),
+        ("fused, every board done at entry", dict(max_steps=24), False, True),
     ):
-        card = plain = env_held_start(b, 3)
+        card = plain = env_held_start(b, 3, all_done)
         seen = dict(resets=0, wins=0, draws=0)
         for t in range(steps):
-            fresh = random_cell_state(b, generator=gen) if inject else None
+            fresh = random_cell_state(b, generator=gen, randomize_positions=True) \
+                if inject else None
             stats(plain, seen)
             nxt = env_step_auto_reset_batch(
                 plain, moves[t], fused=True, fresh=fresh, device="cpu", **kw)
@@ -753,7 +817,13 @@ def phase_env_held(dev):
         assert min(seen.values()) > 0, f"env {what}: {seen}"
         log(f"[env] held: {what}: {b} x {steps}: card == plain ({seen})")
 
-    for what, use_rands in (("rand_moves", True), ("seed (Philox rands)", False)):
+    for what, kw, use_rands, inject in (
+        ("rand_moves", dict(max_steps=24), True, False),
+        ("seed (Philox rands), team mode, randomize_positions",
+         dict(max_steps=24, team_mode=True, randomize_positions=True), False,
+         False),
+        ("seed, injected fresh boards", dict(max_steps=24), False, True),
+    ):
         card = plain = env_held_start(b, 4)
         fsm_c = fsm_p = simple_fsm_state_init(b, "cpu")
         init = simple_fsm_state_init(b, "cpu")
@@ -761,14 +831,16 @@ def phase_env_held(dev):
         for t in range(steps):
             stats(plain, seen)
             was_done = plain.done[:, None]
-            kw = dict(max_steps=24,
-                      rand_moves=rands[t] if use_rands else None)
+            fresh = random_cell_state(b, generator=gen) if inject else None
+            kw.update(rand_moves=rands[t] if use_rands else None)
             nxt, fsm_p = env_step_auto_reset_batch_fsm(
-                plain, moves[t], fsm_p, (0,), 500 + t, device="cpu", **kw)
+                plain, moves[t], fsm_p, (0,), 500 + t, device="cpu",
+                fresh=fresh, **kw)
             note(plain, nxt, seen)
             plain = nxt
             card, fsm_c = env_step_auto_reset_batch_fsm(
-                card, moves[t], fsm_c, (0,), 500 + t, device=dev, **kw)
+                card, moves[t], fsm_c, (0,), 500 + t, device=dev,
+                fresh=None if fresh is None else _to_device(fresh, dev), **kw)
             expect_env_equal(f"env fsm {what} t={t}", card, plain)
             expect_fsm_equal(f"env fsm {what} t={t}",
                              [a.cpu() for a in fsm_c], fsm_p)
@@ -811,18 +883,12 @@ def check_env(es) -> None:
     assert (es.key[:, 2] >= 1).all()
 
 
-def fused_env_loop(es, gen, steps, counts=None, observe=False,
-                   draw_all=False):
+def fused_env_loop(es, gen, steps, counts=None, observe=False):
     """``steps`` fused env steps with moves from ``gen``; host-clock seconds
-    with a device barrier at the end.  ``draw_all`` draws a reset board for
-    every board in every step and hands it in through ``fresh=``, instead
-    of the on-demand draw for the done boards."""
+    with a device barrier at the end."""
     import torch
 
-    from pomcpp_tpu_torch.env.environment import (
-        _draw_fresh_game,
-        env_step_auto_reset_batch,
-    )
+    from pomcpp_tpu_torch.env.environment import env_step_auto_reset_batch
     from pomcpp_tpu_torch.env.observation import observe_ego
 
     b, dev = es.done.shape[0], es.done.device
@@ -832,9 +898,7 @@ def fused_env_loop(es, gen, steps, counts=None, observe=False,
     for _ in range(steps):
         mv = torch.randint(0, 6, (b, 4), generator=gen, device=dev,
                            dtype=torch.int32)
-        fresh = _draw_fresh_game(es.key, False) if draw_all else None
-        nxt = env_step_auto_reset_batch(es, mv, fused=True, max_steps=800,
-                                        fresh=fresh)
+        nxt = env_step_auto_reset_batch(es, mv, fused=True, max_steps=800)
         if counts is not None:
             counts.add(es, nxt)
         es = nxt
@@ -844,8 +908,85 @@ def fused_env_loop(es, gen, steps, counts=None, observe=False,
     return es, time.perf_counter() - t0, obs
 
 
+def mixed_env_loop(es, fsm, gen, steps, seed, counts=None):
+    """``steps`` mixed-control env steps (learner slot 0 random, three
+    in-kernel SimpleAgents), the FSM rows of finished boards reset as a
+    caller does; host-clock seconds with a device barrier at the end."""
+    import torch
+
+    from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
+    from pomcpp_tpu_torch.env.environment import env_step_auto_reset_batch_fsm
+
+    b, dev = es.done.shape[0], es.done.device
+    init = simple_fsm_state_init(b, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, device=dev,
+                           dtype=torch.int32)
+        was_done = es.done[:, None]
+        nxt, fsm = env_step_auto_reset_batch_fsm(es, mv, fsm, (0,), seed + t,
+                                                 max_steps=800)
+        fsm = type(fsm)(*(torch.where(was_done, i, a)
+                          for a, i in zip(fsm, init)))
+        if counts is not None:
+            counts.add(es, nxt)
+        es = nxt
+    torch.cuda.synchronize()
+    return es, fsm, time.perf_counter() - t0
+
+
+def launches_per_call(before: dict, calls: int) -> dict:
+    """The port's launches since ``before``, per call, by kernel."""
+    from pomcpp_tpu_torch import _ext
+
+    return {k: (v - before[k]) / calls for k, v in _ext.LAUNCHES.items()
+            if v != before[k]}
+
+
+def no_host_read(fn, calls: int = 3) -> None:
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``: any
+    call that waits for the device (a device-to-host read) raises."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(calls):
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one call of ``fn``: the stream is held busy
+    (``torch.cuda._sleep``) while the host queues ``reps`` calls between two
+    events, so the host's own time per call stays out of the reading."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)      # tens of ms at the card's clocks
+    with Timer() as t:
+        for _ in range(reps):
+            fn()
+    return t.ms() / reps
+
+
+def env_max_abs_err(a, b) -> int:
+    """Largest absolute difference over every EnvState field (``b`` may
+    live on another device)."""
+    games = max_abs_err(a.game, type(a.game)(*(t.to(a.done.device)
+                                                for t in b.game)))
+    rest = max(int((x.long() - y.to(x.device).long()).abs().max())
+               for x, y in zip(a[1:], b[1:]))
+    return max(games, rest)
+
+
 def phase_env_main(dev):
-    """The env layer's path at full width; returns rates and launch counts."""
+    """The env layer's path at full width; returns rates, launch counts and
+    the env kernels' times."""
     import numpy as np
     import torch
 
@@ -857,41 +998,50 @@ def phase_env_main(dev):
     gen = torch.Generator(device=dev).manual_seed(51)
     es = env.env_reset(7, BOARDS)
     es, _, _ = fused_env_loop(es, gen, 4)           # warm-up, not counted
+    fsm = simple_fsm_state_init(BOARDS)
+    es, fsm, _ = mixed_env_loop(es, fsm, gen, 4, 8000)
     res = {}
 
     _ext.reset_launches()
     counts = EnvCounts(dev)
+    before = dict(_ext.LAUNCHES)
     es, sec, _ = fused_env_loop(es, gen, ENV_STEPS, counts)
     check_env(es)
+    per_call = launches_per_call(before, ENV_STEPS)
+    if per_call != {"fused_env_step_kernel": 1.0}:
+        raise AssertionError(f"a fused env step launched {per_call}")
     res["fused"] = BOARDS * ENV_STEPS / sec
+    res["fused_ms"] = sec / ENV_STEPS * 1e3
     log(f"[env] main: fused env step, {BOARDS} boards x {ENV_STEPS} steps: "
-        f"{res['fused']:.0f} env-steps/s ({sec / ENV_STEPS * 1e3:.3f} ms per "
-        f"step), {counts.read()}")
+        f"{res['fused']:.0f} env-steps/s ({res['fused_ms']:.3f} ms per "
+        f"step), {counts.read()}; launches per step {per_call}")
 
-    fsm = simple_fsm_state_init(BOARDS)
-    init = simple_fsm_state_init(BOARDS)
     counts = EnvCounts(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(ENV_STEPS):
-        mv = torch.randint(0, 6, (BOARDS, 4), generator=gen, device=dev,
-                           dtype=torch.int32)
-        was_done = es.done[:, None]
-        nxt, fsm = env.env_step_auto_reset_batch_fsm(
-            es, mv, fsm, (0,), 9000 + t, max_steps=800)
-        fsm = type(fsm)(*(torch.where(was_done, i, a)
-                          for a, i in zip(fsm, init)))
-        counts.add(es, nxt)
-        es = nxt
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
+    before = dict(_ext.LAUNCHES)
+    es, fsm, sec = mixed_env_loop(es, fsm, gen, ENV_STEPS, 9000, counts)
     check_env(es)
     assert ((fsm.rp_count >= 0) & (fsm.rp_count <= 4)).all(), "ring count"
+    per_call = launches_per_call(before, ENV_STEPS)
+    if per_call != {"rollout_chunk_simple_kernel": 1.0,
+                    "env_merge_kernel": 1.0}:
+        raise AssertionError(f"a mixed-control env step launched {per_call}")
     res["fsm"] = BOARDS * ENV_STEPS / sec
+    res["fsm_ms"] = sec / ENV_STEPS * 1e3
     log(f"[env] main: mixed-control env step (learner slot 0 random, three "
         f"in-kernel SimpleAgents), {BOARDS} boards x {ENV_STEPS} steps: "
-        f"{res['fsm']:.0f} env-steps/s ({sec / ENV_STEPS * 1e3:.3f} ms per "
-        f"step), {counts.read()}")
+        f"{res['fsm']:.0f} env-steps/s ({res['fsm_ms']:.3f} ms per step), "
+        f"{counts.read()}; launches per step {per_call}")
+
+    # Neither env step reads anything back from the device.
+    mv = torch.randint(0, 6, (BOARDS, 4), generator=gen, device=dev,
+                       dtype=torch.int32)
+    no_host_read(lambda: env.env_step_auto_reset_batch(
+        es, mv, fused=True, max_steps=800, team_mode=True,
+        randomize_positions=True))
+    no_host_read(lambda: env.env_step_auto_reset_batch_fsm(
+        es, mv, fsm, (0,), 7, max_steps=800))
+    log("[env] main: both env steps ran under "
+        "torch.cuda.set_sync_debug_mode('error'): no device-to-host read")
 
     es, sec, obs = fused_env_loop(es, gen, ENV_OBS_STEPS, observe=True)
     w = 9
@@ -926,43 +1076,75 @@ def phase_env_main(dev):
         f"{ended} episodes ended, {int((total < 0).sum())} agents died")
     res["launches"] = dict(_ext.LAUNCHES)
     log(f"[env] launches: {res['launches']}")
-    expect_launched(res["launches"],
-                    ("fused_step_kernel", "rollout_chunk_simple_kernel"),
-                    "the env path")
-
-    # The two ways to reset, on the same state: a host read of done.any()
-    # per step against a fresh draw for every board in every step.
-    for always in (False, True, True, False):
-        _, sec, _ = fused_env_loop(es, gen, 32, draw_all=always)
-        log(f"[env] reset draw {'for every board' if always else 'on demand'}"
-            f": {sec / 32 * 1e3:.3f} ms per fused env step")
-        res.setdefault("always_ms" if always else "branch_ms", []).append(
-            sec / 32 * 1e3)
-    res["state"] = es
+    expect_launched(res["launches"], ENV_KERNELS, "the env path")
+    res["state"], res["fsm_state"] = es, fsm
     return res
 
 
-def profile_env(es) -> None:
-    """Device time by kernel over 32 fused env steps (``--profile``)."""
+def phase_env_timing(es):
+    """The env kernels at full width, each against its plain version on the
+    same inputs (bit for bit) and timed: device ms of one launch, and ms of
+    the plain version on the card."""
+    import torch
+
+    from pomcpp_tpu_torch.engine.fused_step import fused_step_plain
+    from pomcpp_tpu_torch.env import environment as env
+
+    gen = torch.Generator(device=es.done.device).manual_seed(71)
+    mv = torch.randint(0, 6, (BOARDS, 4), generator=gen,
+                       device=es.done.device, dtype=torch.int32)
+    kw = dict(team_mode=False, max_steps=800, randomize_positions=False)
+    out = {}
+    card = env.env_step_auto_reset_batch(es, mv, fused=True, **kw)
+    with Timer() as tp:
+        game = fused_step_plain(es.game, mv)
+        game = game._replace(timestep=game.timestep + 1)
+        plain = env._merge_done_and_reset(es, game, fresh=None, **kw)
+    expect_env_equal("env step at full width", card, plain)
+    out["env_step"] = (device_ms(lambda: env.env_step_auto_reset_batch(
+        es, mv, fused=True, **kw)), tp.ms(), env_max_abs_err(card, plain))
+    card = env._env_launch_cuda(es, fresh=None, game=game, **kw)
+    with Timer() as tp:
+        plain = env._merge_done_and_reset(es, game, fresh=None, **kw)
+    expect_env_equal("env merge at full width", card, plain)
+    out["env_merge"] = (device_ms(lambda: env._env_launch_cuda(
+        es, fresh=None, game=game, **kw)), tp.ms(),
+        env_max_abs_err(card, plain))
+    for name, (ms, plain_ms, _) in out.items():
+        log(f"[timing] {name} {BOARDS} boards ({int(es.done.sum())} done): "
+            f"kernel {ms:.4f} ms (device), plain {plain_ms:.3f} ms, "
+            f"kernel == plain")
+    return out
+
+
+def profile_env(es, fsm) -> None:
+    """Kernels and copies per env step, device time by kernel and the
+    device's idle share over 32 fused and 32 mixed-control env steps
+    (``--profile``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=es.done.device).manual_seed(61)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, sec, _ = fused_env_loop(es, gen, 32)
-    # Kernels and device copies only: an operator's event repeats the time
-    # of the kernels it launched.
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.device_time_total for e in events)
-    launches = sum(e.count for e in events)
-    log(f"[profile] 32 fused env steps: {sec / 32 * 1e3:.3f} ms per step on "
-        f"the host clock (profiler on), {total / 32e3:.3f} ms of device time "
-        f"per step in {launches / 32:.0f} kernels and copies: device idle "
-        f"{1 - total / 1e6 / sec:.3f} of the time")
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
-        log(f"[profile] {e.device_time_total / 32:9.1f} us/step  "
-            f"x{e.count / 32:6.1f}/step  {e.key[:100]}")
+    for what, loop in (
+        ("fused", lambda e: fused_env_loop(e, gen, 32)[1]),
+        ("mixed-control", lambda e: mixed_env_loop(e, fsm, gen, 32, 600)[2]),
+    ):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sec = loop(es)
+        # Kernels and device copies only: an operator's event repeats the
+        # time of the kernels it launched.
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.device_time_total for e in events)
+        launches = sum(e.count for e in events)
+        log(f"[profile] 32 {what} env steps: {sec / 32 * 1e3:.3f} ms per step "
+            f"on the host clock (profiler on), {total / 32e3:.3f} ms of device "
+            f"time per step in {launches / 32:.2f} kernels and copies: device "
+            f"idle {1 - total / 1e6 / sec:.3f} of the time")
+        for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
+            log(f"[profile] {e.device_time_total / 32:9.1f} us/step  "
+                f"x{e.count / 32:6.2f}/step  {e.key[:100]}")
 
 
 # wl::Phase of csrc/step_warp.cuh: cycle sums, then event counts.
@@ -1075,6 +1257,33 @@ def phase_probes_held(dev):
                 n += 1
     log(f"[probes] held: {len(probes.PATTERNS)} patterns x 2 layouts, {n} "
         f"comparisons at K={PROBE_HELD_K}: kernel == plain")
+    err = probe_dot_random(dev)
+    log(f"[probes] held: dot on random floats, K=1 (32 products): kernel "
+        f"within {err:.3g} of the plain f32 chain (tolerance "
+        f"{DOT_RANDOM_TOL})")
+
+
+# ``dot`` on random floats, x in [-1, 1) and W in [-1/32, 1/32): each
+# product is within 2^-15 of |x| @ |W| (<= 2^-14 here) of the exact one in
+# both chains (TF32 pieces; plain f32), and W contracts (spectral radius
+# about 0.2), so the two chains stay within 1e-4 of each other.
+DOT_RANDOM_TOL = 1e-4
+
+
+def probe_dot_random(dev) -> float:
+    import torch
+
+    from pomcpp_tpu_torch import probes
+
+    gen = torch.Generator().manual_seed(81)
+    x = (torch.rand((PROBE_HELD_ROWS, 128), generator=gen) * 2 - 1).to(dev)
+    w = ((torch.rand((128, 128), generator=gen) * 2 - 1) / 32).to(dev)
+    got = probes.probe_dot(x, w, "dot", 1, device=dev)
+    want = probes.probe_dot_plain(x, w, "dot", 1)
+    err = float((got - want).abs().max())
+    if not err <= DOT_RANDOM_TOL:
+        raise AssertionError(f"dot on random floats: error {err}")
+    return err
 
 
 def phase_probes_main(dev):
@@ -1104,6 +1313,10 @@ def phase_probes_main(dev):
                 f"probe {probes.label(p)} {layout} at K={p.k}", got, want))
         ops, moved = probes.work(p, PROBE_ROWS)
         t_ops, t_bytes = ops / OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+        simt_ms = None
+        if p.op == "dot":   # the tensor-core passes the kernel issues
+            simt_ms = t_ops
+            t_ops = probes.tensor_ops(p, PROBE_ROWS) / TF32_OPS_PER_S * 1e3
         library = None
         if p.op == "dot":
             x, w = inputs["x"], inputs["w"]
@@ -1114,18 +1327,20 @@ def phase_probes_main(dev):
             library = tl.ms()
         rows.append({
             "pattern": probes.label(p),
-            "kernel": probes.FAMILY_KERNEL[p.family],
+            "kernel": probes.kernel_of(p),
             "cta_ms": ms[probes.label(p), "cta"],
             "warp_ms": ms[probes.label(p), "warp"],
             "plain_ms": tp.ms(), "max_abs_err": err,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library,
+            **({"simt_bound_ms": simt_ms} if simt_ms else {}),
         })
         log(f"[probes] {probes.label(p):28s} cta {rows[-1]['cta_ms']:9.3f} ms, "
             f"warp {rows[-1]['warp_ms']:9.3f} ms, plain {tp.ms():9.3f} ms, "
             f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})"
-            + (f", torch.matmul chain {library:.3f} ms" if library else "")
+            + (f", torch.matmul chain {library:.3f} ms, f32 SIMT bound "
+               f"{simt_ms:.2f} ms" if library else "")
             + f": kernel == plain at K={p.k}")
     torch.cuda.synchronize()
     return rows, launches
@@ -1167,7 +1382,8 @@ def main() -> int:
         log("partial run: no result line")
         return 4
     if "--profile" in sys.argv[1:]:
-        profile_env(phase_env_main(dev)["state"])
+        env_res = phase_env_main(dev)
+        profile_env(env_res["state"], env_res["fsm_state"])
         profile_chunk_phases(smi)
         log("partial run: no result line")
         return 4
@@ -1178,6 +1394,7 @@ def main() -> int:
     timing = phase_timing(inputs)
     phase_env_held(dev)
     env_res = phase_env_main(dev)
+    env_timing = phase_env_timing(env_res["state"])
     phase_probes_held(dev)
     probe_rows, probe_launches = phase_probes_main(dev)
     torch.cuda.synchronize()
@@ -1193,7 +1410,10 @@ def main() -> int:
     main_ms = {pol: sum(v) / len(v) for pol, v in main_res["chunk_ms"].items()}
     chunk_bound, chunk_by = bound_ms(BOARDS * CHUNK, BOARDS * 2 * STATE_BYTES)
     step_bound, step_by = bound_ms(
-        BOARDS, BOARDS * (2 * STATE_BYTES + MOVE_BYTES))
+        BOARDS, BOARDS * (2 * GAME_BYTES + MOVE_BYTES))
+    env_bound, env_by = bound_ms(
+        BOARDS, BOARDS * (2 * (GAME_BYTES + ENV_BYTES) + MOVE_BYTES))
+    merge_bound, merge_by = bound_ms(BOARDS, BOARDS * 2 * (GAME_BYTES + ENV_BYTES))
     simple_bound, simple_by = bound_ms(
         BOARDS * CHUNK, BOARDS * 2 * (STATE_BYTES + FSM_BYTES))
     act_bound, act_by = bound_ms(
@@ -1220,11 +1440,42 @@ def main() -> int:
             **launches("fused_step_kernel"),
             "max_abs_err": timing["step"][2],
             "ms": timing["step"][0],
+            "entry_ms": timing["step"][3],
             "plain_ms": timing["step"][1],
             "bound_ms": step_bound, "bound_by": step_by,
             "library_ms": None,
             "held_in": ["step", "timing"],
             "shape": f"{BOARDS} boards x 1 step",
+        },
+        {
+            "name": "fused_env_step_kernel", "route": "cuda",
+            "source": "pomcpp_tpu_torch/csrc/env_warp.cuh",
+            "replaces": "pomcpp_tpu/engine/pallas_step.py:1261 (with the "
+                        "env merge, pomcpp_tpu/env/environment.py:197)",
+            **launches("fused_env_step_kernel"),
+            "max_abs_err": env_timing["env_step"][2],
+            "ms": env_timing["env_step"][0],
+            "entry_ms": env_res["fused_ms"],
+            "plain_ms": env_timing["env_step"][1],
+            "bound_ms": env_bound, "bound_by": env_by,
+            "library_ms": None,
+            "held_in": ["env", "timing"],
+            "shape": f"{BOARDS} boards x 1 env step",
+        },
+        {
+            "name": "env_merge_kernel", "route": "cuda",
+            "source": "pomcpp_tpu_torch/csrc/env_warp.cuh",
+            "replaces": "pomcpp_tpu/engine/pallas_step.py:1069 (the env "
+                        "merge after it, pomcpp_tpu/env/environment.py:197)",
+            **launches("env_merge_kernel"),
+            "max_abs_err": env_timing["env_merge"][2],
+            "ms": env_timing["env_merge"][0],
+            "entry_ms": env_res["fsm_ms"],
+            "plain_ms": env_timing["env_merge"][1],
+            "bound_ms": merge_bound, "bound_by": merge_by,
+            "library_ms": None,
+            "held_in": ["env", "timing"],
+            "shape": f"{BOARDS} boards x 1 env merge",
         },
         {
             "name": "rollout_chunk_simple_kernel", "route": "cuda",
@@ -1269,8 +1520,8 @@ def main() -> int:
              "probe_reduce_kernel": ("sublane.sumred", "206 (_kernel_sumred); "
                                      "scripts/microbench_patterns.py:108, "
                                      "microbench_reductions.py:118"),
-             "probe_dot_kernel": ("sublane.dot", "134 (_kernel_dot), :206 "
-                                  "(_kernel_dotred)")}
+             "probe_dot_tc_kernel": ("sublane.dot", "134 (_kernel_dot)"),
+             "probe_dot_kernel": ("sublane.dotred", "206 (_kernel_dotred)")}
     for name, (lead, where) in lines.items():
         mine = [r for r in probe_rows if r["kernel"] == name]
         head = next(r for r in mine if r["pattern"] == lead)
@@ -1301,11 +1552,12 @@ def main() -> int:
     step_ms = timing["step"][0]
     env_rates = {k: env_res[k] for k in ("fused", "fsm", "observe", "gym")}
     log(f"[main] steps/s: {json.dumps(main_res['steps_per_s'])} on {smi}")
-    log(f"[env] env-steps/s: {json.dumps(env_rates)}; the fused env step "
-        f"reaches {env_res['fused'] / (BOARDS / step_ms * 1e3):.3f} of "
-        f"{BOARDS} boards / {step_ms:.3f} ms step entry point; reset draw on "
-        f"demand {env_res['branch_ms']} ms, for every board "
-        f"{env_res['always_ms']} ms per step, on {smi}")
+    log(f"[env] env-steps/s: {json.dumps(env_rates)}; ms per env step: "
+        f"fused {env_res['fused_ms']:.3f} ({ENV_STEP_MS_BEFORE['fused']} "
+        f"before the env kernels), mixed-control {env_res['fsm_ms']:.3f} "
+        f"({ENV_STEP_MS_BEFORE['fsm']}); the fused env step reaches "
+        f"{env_res['fused'] / (BOARDS / step_ms * 1e3):.3f} of {BOARDS} "
+        f"boards / {step_ms:.4f} ms step kernel, on {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # One shared library per source file, so that they build side by side.
 LIBRARIES = {
     "kernels": ("fused_step.cu", ("step_block.cuh", "fsm_block.cuh",
-                                  "step_warp.cuh", "fsm_warp.cuh")),
+                                  "step_warp.cuh", "fsm_warp.cuh",
+                                  "env_warp.cuh")),
     "probes": ("probes.cu", ()),
 }
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ext"
@@ -36,10 +37,10 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("fused_step_kernel", "rollout_chunk_kernel",
-           "rollout_chunk_simple_kernel", "fsm_act_kernel",
-           "probe_elem_kernel", "probe_shift_kernel", "probe_reduce_kernel",
-           "probe_dot_kernel")
+KERNELS = ("fused_step_kernel", "fused_env_step_kernel", "env_merge_kernel",
+           "rollout_chunk_kernel", "rollout_chunk_simple_kernel",
+           "fsm_act_kernel", "probe_elem_kernel", "probe_shift_kernel",
+           "probe_reduce_kernel", "probe_dot_kernel", "probe_dot_tc_kernel")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -120,6 +121,20 @@ class StateView(ctypes.Structure):
     _fields_ = [("f", ctypes.c_void_p * 14)]
 
 
+class GameView(ctypes.Structure):
+    """Device pointers of a CellState's 16 arrays in their own dtypes, in
+    field order (csrc GameView); all null: no game (the unused test hook)."""
+
+    _fields_ = [("f", ctypes.c_void_p * 16)]
+
+
+class EnvView(ctypes.Structure):
+    """Device pointers of an EnvState's done, winner, is_draw and key
+    (csrc EnvView)."""
+
+    _fields_ = [("f", ctypes.c_void_p * 4)]
+
+
 class FsmView(ctypes.Structure):
     """Device pointers of the ten FSM state arrays (csrc FsmView)."""
 
@@ -129,8 +144,13 @@ class FsmView(ctypes.Structure):
 def bind_kernels(handle: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of ``fused_step.cu``."""
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    handle.pomcpp_fused_step.argtypes = [StateView, StateView, p, i, p]
+    g, e = GameView, EnvView
+    handle.pomcpp_fused_step.argtypes = [g, g, p, i, p]
     handle.pomcpp_fused_step.restype = i
+    handle.pomcpp_env_step.argtypes = [g, e, g, e, g, p, i, i, i, i, p]
+    handle.pomcpp_env_step.restype = i
+    handle.pomcpp_env_merge.argtypes = [g, e, g, e, g, i, i, i, i, p]
+    handle.pomcpp_env_merge.restype = i
     handle.pomcpp_rollout_chunk.argtypes = [
         StateView, StateView, i, i, i, u, u, p, p, p, i, p, p, p,
     ]
@@ -147,8 +167,8 @@ def bind_kernels(handle: ctypes.CDLL) -> ctypes.CDLL:
     handle.pomcpp_chunk_warps.restype = i
     handle.pomcpp_chunk_grid.argtypes = [i]
     handle.pomcpp_chunk_grid.restype = i
-    handle.pomcpp_chunk_ctas_per_sm.argtypes = [i]
-    handle.pomcpp_chunk_ctas_per_sm.restype = i
+    handle.pomcpp_ctas_per_sm.argtypes = [i]
+    handle.pomcpp_ctas_per_sm.restype = i
     handle.pomcpp_phase_totals.argtypes = [p]
     handle.pomcpp_phase_totals.restype = i
     handle.pomcpp_error_string.argtypes = [i]
@@ -202,6 +222,17 @@ def state_view(arrays) -> StateView:
     """StateView over 14 contiguous int32 CUDA tensors (kept alive by the
     caller for the duration of the launch)."""
     return _view(StateView, arrays)
+
+
+def game_view(arrays) -> GameView:
+    """GameView over a CellState's 16 contiguous arrays (``None``: all
+    null), as ``state_view``."""
+    return GameView() if arrays is None else _view(GameView, arrays)
+
+
+def env_view(arrays) -> EnvView:
+    """EnvView over an EnvState's done, winner, is_draw and key."""
+    return _view(EnvView, arrays)
 
 
 def fsm_view(arrays) -> FsmView:

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.state import I32
+from ..device import resolve_device
 
 RP_STALE = 14   # code of (0, 0): what a never-written ring slot reads as
 
@@ -47,9 +48,11 @@ class FsmState(NamedTuple):
     mq3: torch.Tensor
 
 
-def simple_agent_init(shape=(), device="cpu") -> SimpleAgentState:
+def simple_agent_init(shape=(), device=None) -> SimpleAgentState:
     """Fresh state for agents of batch shape ``shape`` (slots zeroed, as the
-    oracle build's zero-initialised storage)."""
+    oracle build's zero-initialised storage) on ``device`` (None: the card;
+    ``"cpu"`` for the CPU)."""
+    device = resolve_device(device)
     z = torch.zeros(tuple(shape) + (4,), dtype=I32, device=device)
     z0 = torch.zeros(tuple(shape), dtype=I32, device=device)
     return SimpleAgentState(rp_x=z, rp_y=z, rp_head=z0, rp_count=z0,

@@ -1,12 +1,17 @@
 // The engine kernels of the port and their plain C launchers (bound to
 // PyTorch with ctypes by pomcpp_tpu_torch/_ext.py).
 //
-// fused_step_kernel replaces `_kernel` / `pallas_step`
+// fused_step_kernel<false> replaces `_kernel` / `pallas_step`
 // (pomcpp_tpu/engine/pallas_step.py:1261, :1283): one step for B boards.
-// fsm_act_kernel replaces one `fsm_block` act
-// (pomcpp_tpu/engine/pallas_fsm.py:357) for B boards.  Both hold one board
-// per 128-thread CTA, one cell per thread (step_block.cuh, fsm_block.cuh),
-// and are bound by the latency of their CTA-wide barriers.
+// fused_step_kernel<true> is the fused env step of the PPO rollout
+// (pomcpp_tpu/env/environment.py:168-222): the same step and the env
+// epilogue (env_warp.cuh: done latch, terminal detection, the Philox reset
+// of finished boards) in one launch, on the EnvState in its own dtypes.
+// env_merge_kernel is that epilogue alone, after the mixed-control step's
+// one-step chunk.  fsm_act_kernel replaces one `fsm_block` act
+// (pomcpp_tpu/engine/pallas_fsm.py:357) for B boards; it still holds one
+// board per 128-thread CTA, one cell per thread (fsm_block.cuh), and is
+// bound by the latency of its CTA-wide barriers.
 //
 // rollout_chunk_kernel replaces `_chunk_kernel` / `pallas_rollout_chunk`
 // (:840, :1069): a board's state is loaded once, `steps` steps run with
@@ -18,14 +23,14 @@
 // `inject_slots` override of mixed control), and the ten FSM arrays ride
 // along in shared memory.
 //
-// The chunk kernel holds ONE BOARD PER WARP (step_warp.cuh, fsm_warp.cuh):
-// lane l keeps cells 4l..4l+3 of every plane in registers, neighbours are
-// read by shuffle, boolean planes by ballot, sums by __reduce_*_sync, and
-// nothing in it synchronises a CTA; a CTA is CHUNK_WARPS independent boards
-// and the grid is ceil(batch / CHUNK_WARPS).  In the CTA
-// layout the chunk spent its time at 60-100 barriers a step (one more per
-// BFS round) with the per-agent code run by all four warps; see the notes at
-// the top of the two headers for what each phase does instead.
+// The step, env and chunk kernels hold ONE BOARD PER WARP (step_warp.cuh,
+// fsm_warp.cuh, env_warp.cuh): lane l keeps cells 4l..4l+3 of every plane in
+// registers, neighbours are read by shuffle, boolean planes by ballot, sums
+// by __reduce_*_sync, and nothing in them synchronises a CTA; a CTA is
+// CHUNK_WARPS independent boards and the grid is ceil(batch / CHUNK_WARPS).
+// In the CTA layout the chunk spent its time at 60-100 barriers a step (one
+// more per BFS round) with the per-agent code run by all four warps; see the
+// notes at the top of the headers for what each phase does instead.
 //
 // Bound on the card: a chunk moves 2 x 3,500 bytes per board through HBM
 // (plus the optional test-hook arrays), so at 16384 boards the byte bound
@@ -34,16 +39,19 @@
 // logic, 64 lanes a cycle per SM) and, for the simple policy, by the chain
 // of dependent BFS exchanges; `python3 chip_smoke.py --profile` builds the
 // library with -DPOMCPP_PHASE_CLOCKS (its one build option) and prints where
-// the cycles go.
+// the cycles go.  A single step (fused_step_kernel) moves the same bytes for
+// one step of work, so it sits nearer its byte bound.
 //
 // The PRNG is Philox4x32-10 (Salmon et al., SC'11), counter
 // (board, chunk-local step, stream, word), key (seed lo, seed hi); the
 // plain PyTorch version in engine/fused_step.py computes the same words.
+// The env resets use streams 3-5 of the same generator (env_warp.cuh).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
+#include "env_warp.cuh"
 #include "fsm_block.cuh"
 #include "fsm_warp.cuh"
 #include "step_block.cuh"
@@ -58,9 +66,9 @@
 
 namespace pomcpp {
 
-// Boards (warps) per CTA of the chunk kernel and the CTAs per SM its
-// registers are capped for (128 registers a thread, 16 boards per SM); the
-// launchers' grid is ceil(batch / CHUNK_WARPS).
+// Boards (warps) per CTA of the warp-layout kernels and the CTAs per SM
+// their registers are capped for (128 registers a thread, 16 boards per SM);
+// the launchers' grid is ceil(batch / CHUNK_WARPS).
 constexpr int CHUNK_WARPS = 4;
 constexpr int CHUNK_MIN_CTAS = 4;
 constexpr int chunk_grid(int batch) { return (batch + CHUNK_WARPS - 1) / CHUNK_WARPS; }
@@ -77,29 +85,9 @@ struct StateView {
 
 constexpr uint32_t STREAM_MOVES = 0, STREAM_CELLS = 1, STREAM_FLAGS = 2;
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0, uint32_t k1) {
-  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  constexpr uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) { k0 += W0; k1 += W1; }
-    const uint32_t hi0 = __umulhi(M0, ctr.x), lo0 = M0 * ctr.x;
-    const uint32_t hi1 = __umulhi(M1, ctr.z), lo1 = M1 * ctr.z;
-    ctr = make_uint4(hi1 ^ ctr.y ^ k0, lo1, hi0 ^ ctr.w ^ k1, lo0);
-  }
-  return ctr;
-}
-
-// Non-negative 30-bit draw from a 32-bit word, as the TPU kernel takes it.
-__device__ __forceinline__ int draw30(uint32_t w) { return (int)((w >> 1) & 0x3FFFFFFFu); }
-
 // v % n; the policies' move counts divide by a constant.
 __device__ __forceinline__ int draw_mod(int v, int n) {
   return n == 5 ? v % 5 : n == 6 ? v % 6 : v % n;
-}
-
-__device__ __forceinline__ uint32_t word_of(uint4 v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
 __device__ __forceinline__ void load_board(const StateView& in, int b, int c, Cell& s, Agents& A) {
@@ -122,47 +110,64 @@ __device__ __forceinline__ void load_board(const StateView& in, int b, int c, Ce
   }
 }
 
-__device__ __forceinline__ void store_board(const StateView& out, int b, int c, const Cell& s,
-                                            const Agents& A) {
-  if (c < NC) {
-    const int o = b * NC + c;
-    out.f[0][o] = s.board;
-    out.f[1][o] = s.hidden;
-    out.f[2][o] = s.ftimer;
-    out.f[3][o] = s.btimer;
-    out.f[4][o] = s.bstr;
-    out.f[5][o] = s.bdir;
-    out.f[6][o] = s.bown;
-  }
-  if (c < NA) {
-    const int o = b * NA + c;
-    out.f[7][o] = A.x[c];
-    out.f[8][o] = A.y[c];
-    out.f[9][o] = A.bc[c];
-    out.f[10][o] = A.mb[c];
-    out.f[11][o] = A.st[c];
-    out.f[12][o] = A.kick[c];
-    out.f[13][o] = A.dead[c];
-  }
-}
-
 // Board finished: at most one agent alive.
 __device__ __forceinline__ bool finished(const Agents& A) {
   return A.dead[0] + A.dead[1] + A.dead[2] + A.dead[3] >= 3;
 }
 
-__global__ void __launch_bounds__(NT) fused_step_kernel(StateView in, StateView out,
-                                                        const int32_t* __restrict__ moves) {
-  __shared__ Shared sh;
-  const int b = blockIdx.x, c = threadIdx.x;
-  Cell s;
+// One step for board k * CHUNK_WARPS + w in warp w of CTA k, on the chunk
+// kernel's body without its loop.  kEnv: the fused env step -- a board that
+// was done before the step is reset instead of stepped (a warp-uniform
+// branch), the others step, advance their timestep and latch their result
+// (env_warp.cuh).  Without kEnv the EnvState views are unused and timestep
+// is kept, as in `pallas_step`; alive_count is recounted either way.
+template <bool kEnv>
+__global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) fused_step_kernel(
+    GameView in, GameView out, EnvView ein, EnvView eout, GameView fresh, EnvConfig cfg,
+    const int32_t* __restrict__ moves, int batch) {
+  __shared__ wl::WarpShared ws_all[CHUNK_WARPS];
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * CHUNK_WARPS + warp;
+  if (b >= batch) return;  // the whole warp, and nothing below waits for it
+  const wl::Geo g = wl::make_geo();
+  wl::Cells s;
   Agents A;
-  load_board(in, b, c, s, A);
+  if constexpr (kEnv) {
+    if (__any_sync(wl::FULL, ein.done[b] != 0)) {  // the same byte in every lane
+      wl::env_reset_board(b, g, fresh, ein, out, eout, cfg.randomize_positions != 0, s, A);
+      return;
+    }
+  }
+  wl::load_game(in, b, g, s, A);
   int mv[NA];
 #pragma unroll
   for (int i = 0; i < NA; ++i) mv[i] = moves[b * NA + i];
-  step_board(s, A, mv, sh);
-  store_board(out, b, c, s, A);
+  wl::PhaseClock pc;
+  wl::step_board(s, A, mv, ws_all[warp], g, pc);
+  const int alive = wl::alive_of(A), timestep = in.timestep[b] + (kEnv ? 1 : 0);
+  wl::store_game(out, b, g, s, A, alive, timestep);
+  if constexpr (kEnv) wl::env_latch(b, g, A, alive, timestep, ein, eout, cfg);
+}
+
+// The env epilogue alone, on a batch that another launch stepped (the
+// mixed-control env step's one-step chunk; its timestep is already
+// advanced): done boards reset, the others keep `stepped` and latch.
+__global__ void __launch_bounds__(CHUNK_WARPS * 32) env_merge_kernel(
+    GameView stepped, GameView out, EnvView ein, EnvView eout, GameView fresh, EnvConfig cfg,
+    int batch) {
+  const int b = blockIdx.x * CHUNK_WARPS + (threadIdx.x >> 5);
+  if (b >= batch) return;
+  const wl::Geo g = wl::make_geo();
+  wl::Cells s;
+  Agents A;
+  if (__any_sync(wl::FULL, ein.done[b] != 0)) {
+    wl::env_reset_board(b, g, fresh, ein, out, eout, cfg.randomize_positions != 0, s, A);
+    return;
+  }
+  wl::load_game(stepped, b, g, s, A);
+  const int alive = stepped.alive_count[b], timestep = stepped.timestep[b];
+  wl::store_game(out, b, g, s, A, alive, timestep);
+  wl::env_latch(b, g, A, alive, timestep, ein, eout, cfg);
 }
 
 // Warp-layout loads and stores: lane l moves cells 4l..4l+3 of its warp's
@@ -392,10 +397,35 @@ __global__ void __launch_bounds__(NT) fsm_act_kernel(StateView in, FsmView fin, 
 
 extern "C" {
 
-int pomcpp_fused_step(pomcpp::StateView in, pomcpp::StateView out, const int32_t* moves,
-                      int batch, void* stream) {
+int pomcpp_fused_step(pomcpp::GameView in, pomcpp::GameView out, const int32_t* moves, int batch,
+                      void* stream) {
   if (batch <= 0) return (int)cudaErrorInvalidValue;
-  POMCPP_LAUNCH(pomcpp::fused_step_kernel, batch, pomcpp::NT, stream, in, out, moves);
+  const pomcpp::EnvView no_env{};
+  const pomcpp::GameView no_game{};
+  POMCPP_LAUNCH(pomcpp::fused_step_kernel<false>, pomcpp::chunk_grid(batch),
+                pomcpp::CHUNK_WARPS * 32, stream, in, out, no_env, no_env, no_game,
+                pomcpp::EnvConfig{}, moves, batch);
+  return (int)cudaGetLastError();
+}
+
+// `fresh` holds null pointers unless the test hook supplies the reset games.
+int pomcpp_env_step(pomcpp::GameView in, pomcpp::EnvView ein, pomcpp::GameView out,
+                    pomcpp::EnvView eout, pomcpp::GameView fresh, const int32_t* moves, int batch,
+                    int team_mode, int max_steps, int randomize_positions, void* stream) {
+  if (batch <= 0) return (int)cudaErrorInvalidValue;
+  const pomcpp::EnvConfig cfg{team_mode, max_steps, randomize_positions};
+  POMCPP_LAUNCH(pomcpp::fused_step_kernel<true>, pomcpp::chunk_grid(batch),
+                pomcpp::CHUNK_WARPS * 32, stream, in, out, ein, eout, fresh, cfg, moves, batch);
+  return (int)cudaGetLastError();
+}
+
+int pomcpp_env_merge(pomcpp::GameView stepped, pomcpp::EnvView ein, pomcpp::GameView out,
+                     pomcpp::EnvView eout, pomcpp::GameView fresh, int batch, int team_mode,
+                     int max_steps, int randomize_positions, void* stream) {
+  if (batch <= 0) return (int)cudaErrorInvalidValue;
+  const pomcpp::EnvConfig cfg{team_mode, max_steps, randomize_positions};
+  POMCPP_LAUNCH(pomcpp::env_merge_kernel, pomcpp::chunk_grid(batch), pomcpp::CHUNK_WARPS * 32,
+                stream, stepped, out, ein, eout, fresh, cfg, batch);
   return (int)cudaGetLastError();
 }
 
@@ -433,20 +463,27 @@ int pomcpp_fsm_act(pomcpp::StateView in, pomcpp::FsmView fin, pomcpp::FsmView fo
   return (int)cudaGetLastError();
 }
 
-// Boards per CTA of the chunk kernel, the CTAs the launchers start for a
-// batch, and the CTAs that the runtime keeps resident on one SM (0 or less:
-// none fits, or the query failed).
+// Boards per CTA of the warp-layout kernels, the CTAs the launchers start
+// for a batch, and the CTAs of one kernel that the runtime keeps resident on
+// one SM (0 or less: none fits, or the query failed).  `kernel`: 0
+// rollout_chunk_kernel<false>, 1 <true>, 2 fused_step_kernel<false>, 3
+// <true>, 4 env_merge_kernel.
 int pomcpp_chunk_warps() { return pomcpp::CHUNK_WARPS; }
 
 int pomcpp_chunk_grid(int batch) { return pomcpp::chunk_grid(batch); }
 
-int pomcpp_chunk_ctas_per_sm(int simple) {
+int pomcpp_ctas_per_sm(int kernel) {
+  using namespace pomcpp;
+  constexpr int nt = CHUNK_WARPS * 32;
   int n = 0;
-  const cudaError_t err =
-      simple ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, pomcpp::rollout_chunk_kernel<true>, pomcpp::CHUNK_WARPS * 32, 0)
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, pomcpp::rollout_chunk_kernel<false>, pomcpp::CHUNK_WARPS * 32, 0);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (kernel) {
+    case 0: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rollout_chunk_kernel<false>, nt, 0); break;
+    case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rollout_chunk_kernel<true>, nt, 0); break;
+    case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_step_kernel<false>, nt, 0); break;
+    case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_step_kernel<true>, nt, 0); break;
+    case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, env_merge_kernel, nt, 0); break;
+  }
   return err == cudaSuccess ? n : -(int)err;
 }
 

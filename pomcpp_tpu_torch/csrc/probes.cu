@@ -17,9 +17,9 @@
 // Four kernel families: probe_elem_kernel (elementwise chains),
 // probe_shift_kernel (lane rolls and agent-array rotations),
 // probe_reduce_kernel (row reductions; probe_reduce_tile_kernel for the
-// reductions over a whole 128-row tile) and probe_dot_kernel (the f32
-// products, computed here with an FMA loop over a shared-memory copy of
-// the matrix).  `rows` / `tile` restrict the work to the first `rows` rows
+// reductions over a whole 128-row tile), probe_dot_kernel (`dotred`, the
+// one-column f32 products of a row reduction) and probe_dot_tc_kernel
+// (`dot`, the chain of f32 matrix products, on the tensor cores).  `rows` / `tile` restrict the work to the first `rows` rows
 // of every `tile` rows (the other rows are copied), as the sublane script
 // does.  Plain C interface at the bottom; pomcpp_tpu_torch/probes.py binds it.
 
@@ -502,106 +502,227 @@ probe_reduce_tile_kernel(const int32_t* __restrict__ p_in, int32_t* __restrict__
 
 // --- Products ------------------------------------------------------------------------------
 
-// D_DOT:    x f32[n_rows, 128]; 32 x { x = x @ W; x += 1 } per iteration.
 // D_DOTRED: x i32[n_rows, 128]; 8 x { r = dot(x & 0xFFFF, W[:, 0]) +
-//           (dot(x >> 16, W[:, 0]) << 16); x += r } per iteration, the two
-//           dots in f32 (exact below 2^24).
-// W f32[128, 128] is copied to shared memory once per CTA.
-// Replaces _kernel_dot and _kernel_dotred (sublane).  Bound by f32
-// operations (K x 32 products of 128 x 128 per row against 16 MB moved);
-// the FMA loop reads W from shared memory, one value per FMA in L_CTA and
-// one float4 per four FMAs in L_WARP, with the row's values broadcast from
-// shared memory (L_CTA) or by shuffle (L_WARP).  No tensor cores yet.
-template <int OP, int L>
+// (dot(x >> 16, W[:, 0]) << 16); x += r } per iteration, the two dots in f32
+// (exact below 2^24).  Replaces _kernel_dotred (sublane :175).  W[:, 0] is
+// copied to shared memory once per CTA; a row's two dots are row
+// reductions (shared memory and barriers in L_CTA, shuffles in L_WARP).
+// Bound by operations: per element and round two one-column products and
+// six integer operations.
+template <int L>
 __global__ void __launch_bounds__(NT)
-probe_dot_kernel(const void* __restrict__ x_in, const float* __restrict__ w,
-                 void* __restrict__ x_out, int n_rows, int k, int rows, int tile) {
+probe_dot_kernel(const int32_t* __restrict__ xin, const float* __restrict__ w,
+                 int32_t* __restrict__ xout, int n_rows, int k, int rows, int tile) {
   using Y = Lay<L>;
   constexpr int NPT = Y::NPT;
-  extern __shared__ __align__(16) float ws[];     // D_DOT: W; D_DOTRED: W[:, 0]
+  __shared__ float wc_all[LANES];
   __shared__ int sm[2 * LANES];
   Ctx<L> cx(sm);
-  if constexpr (OP == D_DOT) {
-    for (int e = threadIdx.x; e < LANES * LANES; e += NT) ws[e] = w[e];
-  } else {
-    ws[threadIdx.x] = w[threadIdx.x * LANES];
-  }
+  wc_all[threadIdx.x] = w[threadIdx.x * LANES];
   __syncthreads();
   const int row = Y::row();
   if (row >= n_rows) return;
   const bool live = (row % tile) < rows;
+  int v[NPT];
+  float wc[NPT];
+#pragma unroll
+  for (int j = 0; j < NPT; ++j) {
+    v[j] = xin[(size_t)row * LANES + Y::cell(j)];
+    wc[j] = wc_all[Y::cell(j)];
+  }
+  if (live) {
+    for (int i = 0; i < k; ++i) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float lo = 0.f, hi = 0.f;
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) {
+          lo = fmaf((float)(v[j] & 0xFFFF), wc[j], lo);
+          hi = fmaf((float)(v[j] >> 16), wc[j], hi);
+        }
+        lo = row_reduce<OpAdd>(cx, lo);
+        hi = row_reduce<OpAdd>(cx, hi);
+        const unsigned r = (unsigned)(int)lo + ((unsigned)(int)hi << 16);
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) v[j] = (int)((unsigned)v[j] + r);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NPT; ++j) xout[(size_t)row * LANES + Y::cell(j)] = v[j];
+}
 
-  if constexpr (OP == D_DOT) {
-    const float* xin = static_cast<const float*>(x_in);
-    float* xout = static_cast<float*>(x_out);
-    float v[NPT];
+// D_DOT: x f32[n_rows, 128]; 32 x { x = x @ W; x += 1 } per iteration.
+// Replaces _kernel_dot / bench_dot (sublane :116, :130); `layout` does not
+// apply (the rows are not laid out over threads one by one).
+//
+// On the tensor cores (wgmma, sm_90a).  A CTA takes a 128-row tile as two
+// warpgroups, and each warpgroup owns a 64-row slab of x for the whole
+// chain: x lives in the 64 accumulator registers a thread holds of an
+// m64n128 f32 product, the `+ 1.0` is applied there, and the accumulator of
+// one product is the A operand, in registers, of the next -- x never goes
+// back to shared or device memory inside the chain.  W is the B operand,
+// resident in shared memory for the whole kernel.
+//
+// f32 from TF32 pieces (3xTF32): v = hi + lo with hi = tf32(v) and lo =
+// tf32(v - hi) (cvt.rna); a product is lo(x) hi(W) + hi(x) lo(W) + hi(x)
+// hi(W), accumulated in f32; lo(x) lo(W), 2^-22 of |x||W|, is dropped.
+// Exactness on the held inputs (probes.pattern_inputs: x ones or seeded
+// integers 0..3, W a 0/1 shift matrix or ones): every value of the chain is
+// an integer below 2^13 (a product moves x one lane over and adds 1, so a
+// value is at most its start plus 128); TF32 keeps 11 significant bits, so
+// hi and lo hold such an integer exactly (lo is 0 below 2^11), every
+// product of pieces is exact and every f32 sum of integers below 2^24 is
+// exact: the kernel equals probe_dot_plain bit for bit there.  On random
+// f32 inputs the dropped term, lo's rounding and the accumulation order
+// keep a product within 2^-15 of |x| @ |W| of the exact one.
+//
+// Fragments (per warp of the warpgroup, lane 4g + t, rows g and g + 8 of
+// its 16): the tf32 A operand of m64nNk8 is a0 (g, t), a1 (g + 8, t), a2
+// (g, t + 4), a3 (g + 8, t + 4); the accumulator holds (g, 8c + 2t), (g, 8c
+// + 2t + 1), (g + 8, 8c + 2t), (g + 8, 8c + 2t + 1) as d[4c .. 4c + 3].  The
+// accumulator's block c of 8 columns is therefore handed over as the A
+// operand of k-block c with no exchange, its columns 2t and 2t + 1 taking
+// the k-slots t and t + 4; W's rows are permuted the same way within each
+// block of 8 when they are written to shared memory (row 8c + q goes to
+// k-slot q / 2 for even q, 4 + q / 2 for odd q), which leaves the product
+// unchanged.  B is K-major without swizzle, in core matrices of 8 n x 4 k:
+// core matrix (k-quad kq, n-octet no) at byte (16 kq + no) * 128, so the
+// leading (K) byte offset is 2048 and the stride (N) byte offset 128.
+//
+// Bound: the tensor cores -- 3 passes of 32 K products of [16384, 128] x
+// [128, 128] at the TF32 dense rate (495 TFLOP/s): 20.8 ms at K = 200.  A
+// CTA's 128 KB of W take an SM's shared memory, so an SM holds two slabs,
+// and one warpgroup's conversions run beside the other's products.
+constexpr int DOT_SLAB = 64;      // rows of x a warpgroup owns
+constexpr int DOT_WGS = 2;        // warpgroups of a CTA
+constexpr int DOT_NT = 128 * DOT_WGS;
+constexpr int DOT_SMEM = 2 * LANES * LANES * (int)sizeof(float);  // W's hi and lo pieces
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// The shared-memory matrix descriptor of B at `p`: no swizzle, leading (K)
+// byte offset 2048, stride (N) byte offset 128, both in 16-byte units.
+__device__ __forceinline__ uint64_t dot_desc(const float* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFFu) >> 4) | ((uint64_t)(2048 >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// d (+)= A B for one k-block: A from registers, B from shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// Keeps the compiler from moving reads or writes of the accumulator across
+// the asynchronous products.
+__device__ __forceinline__ void fence_accumulator(float (&d)[64]) {
 #pragma unroll
-    for (int j = 0; j < NPT; ++j) v[j] = xin[(size_t)row * LANES + Y::cell(j)];
-    if (live) {
-      for (int i = 0; i < k; ++i) {
-        for (int n = 0; n < 32; ++n) {
-          float acc[NPT];
+  for (int j = 0; j < 64; ++j) asm volatile("" : "+f"(d[j])::"memory");
+}
+
+__global__ void __launch_bounds__(DOT_NT, 1)
+probe_dot_tc_kernel(const float* __restrict__ x_in, const float* __restrict__ w,
+                    float* __restrict__ x_out, int n_rows, int k, int rows, int tile) {
+  extern __shared__ __align__(128) float wsm[];  // hi then lo, each in core-matrix order
+  for (int e = threadIdx.x; e < LANES * LANES; e += DOT_NT) {
+    const int wr = e / LANES, n = e % LANES, q = wr & 7;
+    const int kk = (wr & ~7) + ((q & 1) ? 4 + (q >> 1) : (q >> 1));
+    const int off = ((kk >> 2) * 16 + (n >> 3)) * 32 + (n & 7) * 4 + (kk & 3);
+    const float v = w[e];
+    const uint32_t hi = tf32_rna(v);
+    wsm[off] = __uint_as_float(hi);
+    wsm[LANES * LANES + off] = __uint_as_float(tf32_rna(v - __uint_as_float(hi)));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // stores -> wgmma reads
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int slab = blockIdx.x * DOT_SLAB * DOT_WGS + wg * DOT_SLAB;
+  const int r[2] = {slab + 16 * warp + (lane >> 2), slab + 16 * warp + (lane >> 2) + 8};
+  const int col = 2 * (lane & 3);
+  // The warpgroup skips the chain where its slab holds no live row.
+  bool live_slab = false;
+  for (int i = slab; i < min(slab + DOT_SLAB, n_rows); ++i) live_slab |= (i % tile) < rows;
+
+  float d[64];
 #pragma unroll
-          for (int j = 0; j < NPT; ++j) acc[j] = 0.f;
-          if constexpr (L == L_CTA) {
-            float* xs = reinterpret_cast<float*>(cx.next());
-            xs[threadIdx.x] = v[0];
-            __syncthreads();
-#pragma unroll 8
-            for (int kk = 0; kk < LANES; ++kk)
-              acc[0] = fmaf(xs[kk], ws[kk * LANES + threadIdx.x], acc[0]);
-          } else {
-            const float4* w4 = reinterpret_cast<const float4*>(ws);
-            const int t = threadIdx.x & 31;
-            for (int src = 0; src < 32; ++src) {
+  for (int c = 0; c < 16; ++c) {
 #pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                const float xk = __shfl_sync(FULL, v[c], src);
-                const float4 wv = w4[(4 * src + c) * (LANES / 4) + t];
-                acc[0] = fmaf(xk, wv.x, acc[0]);
-                acc[1] = fmaf(xk, wv.y, acc[1]);
-                acc[2] = fmaf(xk, wv.z, acc[2]);
-                acc[3] = fmaf(xk, wv.w, acc[3]);
-              }
-            }
-          }
+    for (int h = 0; h < 2; ++h) {
+      float2 v = make_float2(0.f, 0.f);
+      if (r[h] < n_rows) v = *reinterpret_cast<const float2*>(x_in + (size_t)r[h] * LANES + 8 * c + col);
+      d[4 * c + 2 * h] = v.x;
+      d[4 * c + 2 * h + 1] = v.y;
+    }
+  }
+  if (live_slab) {
+    const uint64_t b_hi = dot_desc(wsm), b_lo = dot_desc(wsm + LANES * LANES);
+    constexpr uint64_t KBLOCK = 4096 >> 4;  // one k-block of B: 8 k x 128 n
+    for (int it = 0; it < 32 * k; ++it) {
+      uint32_t ah[16][4], al[16][4];
 #pragma unroll
-          for (int j = 0; j < NPT; ++j) v[j] = acc[j] + 1.0f;
+      for (int c = 0; c < 16; ++c) {
+        const float a[4] = {d[4 * c], d[4 * c + 2], d[4 * c + 1], d[4 * c + 3]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ah[c][j] = tf32_rna(a[j]);
+          al[c][j] = tf32_rna(a[j] - __uint_as_float(ah[c][j]));
         }
       }
+      fence_accumulator(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int c = 0; c < 16; ++c) wgmma_tf32(d, al[c], b_hi + c * KBLOCK, c > 0);
+#pragma unroll
+      for (int c = 0; c < 16; ++c) wgmma_tf32(d, ah[c], b_lo + c * KBLOCK, 1);
+#pragma unroll
+      for (int c = 0; c < 16; ++c) wgmma_tf32(d, ah[c], b_hi + c * KBLOCK, 1);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_accumulator(d);
+#pragma unroll
+      for (int j = 0; j < 64; ++j) d[j] += 1.0f;
     }
+  }
 #pragma unroll
-    for (int j = 0; j < NPT; ++j) xout[(size_t)row * LANES + Y::cell(j)] = v[j];
-  } else {
-    const int32_t* xin = static_cast<const int32_t*>(x_in);
-    int32_t* xout = static_cast<int32_t*>(x_out);
-    int v[NPT];
-    float wc[NPT];
+  for (int c = 0; c < 16; ++c) {
 #pragma unroll
-    for (int j = 0; j < NPT; ++j) {
-      v[j] = xin[(size_t)row * LANES + Y::cell(j)];
-      wc[j] = ws[Y::cell(j)];
+    for (int h = 0; h < 2; ++h) {
+      if (r[h] >= n_rows) continue;
+      const size_t o = (size_t)r[h] * LANES + 8 * c + col;
+      const float2 v = (r[h] % tile) < rows ? make_float2(d[4 * c + 2 * h], d[4 * c + 2 * h + 1])
+                                            : *reinterpret_cast<const float2*>(x_in + o);
+      *reinterpret_cast<float2*>(x_out + o) = v;
     }
-    if (live) {
-      for (int i = 0; i < k; ++i) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          float lo = 0.f, hi = 0.f;
-#pragma unroll
-          for (int j = 0; j < NPT; ++j) {
-            lo = fmaf((float)(v[j] & 0xFFFF), wc[j], lo);
-            hi = fmaf((float)(v[j] >> 16), wc[j], hi);
-          }
-          lo = row_reduce<OpAdd>(cx, lo);
-          hi = row_reduce<OpAdd>(cx, hi);
-          const unsigned r = (unsigned)(int)lo + ((unsigned)(int)hi << 16);
-#pragma unroll
-          for (int j = 0; j < NPT; ++j) v[j] = (int)((unsigned)v[j] + r);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NPT; ++j) xout[(size_t)row * LANES + Y::cell(j)] = v[j];
   }
 }
 
@@ -662,23 +783,21 @@ static int launch_tile(int layout, const int32_t* p_in, int32_t* p_out, const in
   return (int)cudaGetLastError();
 }
 
-template <int OP, int L>
-static int launch_dot_l(const void* x_in, const float* w, void* x_out, int n_rows, int k,
-                        int rows, int tile, cudaStream_t s) {
-  const int smem = (OP == D_DOT ? LANES * LANES : LANES) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(probe_dot_kernel<OP, L>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  probe_dot_kernel<OP, L><<<row_grid<L>(n_rows), NT, smem, s>>>(x_in, w, x_out, n_rows, k, rows,
-                                                                  tile);
+template <int L>
+static int launch_dotred(const int32_t* x_in, const float* w, int32_t* x_out, int n_rows, int k,
+                         int rows, int tile, cudaStream_t s) {
+  probe_dot_kernel<L><<<row_grid<L>(n_rows), NT, 0, s>>>(x_in, w, x_out, n_rows, k, rows, tile);
   return (int)cudaGetLastError();
 }
 
-template <int OP>
-static int launch_dot(int layout, const void* x_in, const float* w, void* x_out, int n_rows,
-                      int k, int rows, int tile, cudaStream_t s) {
-  return layout == L_CTA ? launch_dot_l<OP, L_CTA>(x_in, w, x_out, n_rows, k, rows, tile, s)
-                         : launch_dot_l<OP, L_WARP>(x_in, w, x_out, n_rows, k, rows, tile, s);
+static int launch_dot_tc(const float* x_in, const float* w, float* x_out, int n_rows, int k,
+                         int rows, int tile, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      probe_dot_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DOT_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (n_rows + DOT_SLAB * DOT_WGS - 1) / (DOT_SLAB * DOT_WGS);
+  probe_dot_tc_kernel<<<grid, DOT_NT, DOT_SMEM, s>>>(x_in, w, x_out, n_rows, k, rows, tile);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace pomcpp_probes
@@ -760,14 +879,21 @@ int pomcpp_probe_reduce(int op, int layout, const int32_t* p_in, int32_t* p_out,
   return ERR_BAD_ARGUMENT;
 }
 
+// op D_DOT runs on the tensor cores whatever the layout; D_DOTRED in both.
 int pomcpp_probe_dot(int op, int layout, const void* x_in, const float* w, void* x_out,
                      int n_rows, int k, int rows, int tile, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (layout != L_CTA && layout != L_WARP) return ERR_BAD_ARGUMENT;
-  if (tile < 1) return ERR_BAD_ARGUMENT;
+  if (tile < 1 || n_rows < 1) return ERR_BAD_ARGUMENT;
   switch (op) {
-    case D_DOT: return launch_dot<D_DOT>(layout, x_in, w, x_out, n_rows, k, rows, tile, s);
-    case D_DOTRED: return launch_dot<D_DOTRED>(layout, x_in, w, x_out, n_rows, k, rows, tile, s);
+    case D_DOT:
+      return launch_dot_tc((const float*)x_in, w, (float*)x_out, n_rows, k, rows, tile, s);
+    case D_DOTRED: {
+      const int32_t* xi = (const int32_t*)x_in;
+      int32_t* xo = (int32_t*)x_out;
+      return layout == L_CTA ? launch_dotred<L_CTA>(xi, w, xo, n_rows, k, rows, tile, s)
+                             : launch_dotred<L_WARP>(xi, w, xo, n_rows, k, rows, tile, s);
+    }
   }
   return ERR_BAD_ARGUMENT;
 }

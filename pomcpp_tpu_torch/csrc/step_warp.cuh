@@ -1,17 +1,16 @@
 // One full Pommerman step for one board held by ONE WARP, as device code of
-// rollout_chunk_kernel (fused_step.cu).
+// rollout_chunk_kernel and fused_step_kernel (fused_step.cu).
 //
 // Replaces `_step_block` (pomcpp_tpu/engine/pallas_step.py:247) and the
 // helpers it inlines (`_push`/`_pull`/`_dest_val`/`_dest_oob` :82-166,
-// `_ray_reach` :189), as step_block.cuh does for the one-step kernel.  The
-// semantic spec is the plain PyTorch version,
+// `_ray_reach` :189).  The semantic spec is the plain PyTorch version,
 // pomcpp_tpu_torch/engine/cellular.py `cellular_step(..., max_chain_rounds=4)`;
 // the code below follows it phase for phase and must agree with it bit for
 // bit.  step_block.cuh supplies the constants, `Agents` and the scalar
-// helpers; nothing here uses its `Shared`, `block_or` or `block_sum`.
+// helpers.
 //
-// What bounded the CTA layout on this card (one board per 128-thread CTA,
-// one cell per thread): latency, not bytes and not arithmetic -- 60-100
+// What bounded the CTA layout this replaced on this card (one board per
+// 128-thread CTA, one cell per thread): latency, not bytes and not arithmetic -- 60-100
 // CTA-wide barriers per step, and the per-agent scalar code executed by all
 // four warps.  What this layout does about it:
 //   * Lane l of the warp holds cells 4l..4l+3 of a 128-padded plane (cells

@@ -48,6 +48,7 @@ from ..core.constants import (
     NUM_CELLS,
 )
 from ..core.state import I32, flag_item, is_agent, is_powerup
+from ..device import resolve_device
 
 _NEG = -1000
 # Direction codes reuse move codes 1..4: UP(-y), DOWN(+y), LEFT(-x), RIGHT(+x).
@@ -81,8 +82,10 @@ PLANE_FIELDS = CellState._fields[:7]
 AGENT_FIELDS = CellState._fields[7:14]
 
 
-def empty_cell_state(b: int, device="cpu") -> CellState:
-    """All-passage boards, agents at (0,0), default stats."""
+def empty_cell_state(b: int, device=None) -> CellState:
+    """All-passage boards, agents at (0,0), default stats, on ``device``
+    (None: the card; ``"cpu"`` for the CPU)."""
+    device = resolve_device(device)
     zc = torch.zeros((b, NUM_CELLS), dtype=I32, device=device)
     za = torch.zeros((b, AGENT_COUNT), dtype=I32, device=device)
     zb = torch.zeros((b, AGENT_COUNT), dtype=torch.bool, device=device)

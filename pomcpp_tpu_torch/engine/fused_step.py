@@ -300,20 +300,48 @@ def _kernel_outputs(cs: CellState, outs, timestep) -> CellState:
     return _with_counts(out, timestep)
 
 
-def _fused_step_cuda(cs: CellState, moves) -> CellState:
-    ins = _kernel_inputs(cs, "cuda")
-    b = ins[0].shape[0]
-    moves = moves.to(I32).contiguous()
-    if moves.shape != (b, AGENT_COUNT) or not moves.is_cuda:
-        raise ValueError(f"moves must be i32[{b}, 4] on the card")
+GAME_DTYPES = (torch.int32,) * 12 + (torch.bool,) * 2 + (torch.int32,) * 2
+
+
+def game_arrays(cs: CellState, device_type: str):
+    """The 16 arrays of ``cs`` in their own dtypes (int32, and bool as one
+    byte), contiguous, all on a device of ``device_type`` (the launcher's).
+    A conversion happens only where a field has another dtype."""
+    b = cs.board.shape[0]
+    shapes = ((b, NUM_CELLS),) * 7 + ((b, AGENT_COUNT),) * 7 + ((b,),) * 2
+    arrays = []
+    for name, t, dtype, shape in zip(CellState._fields, cs, GAME_DTYPES,
+                                     shapes):
+        if t.device.type != device_type:
+            raise ValueError(f"{name} is not on a {device_type} device")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} of shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        arrays.append(t.to(dtype).contiguous())
+    return arrays
+
+
+def _fused_step_launch(lib, stream, cs: CellState, moves) -> CellState:
+    """Marshal the arguments and call the step launcher of ``lib`` (on the
+    card's stream, or ``stream=None``: the tests' host build of the source
+    on CPU tensors, not counted as a launch)."""
+    ins = game_arrays(cs, "cpu" if stream is None else "cuda")
+    b, dev = ins[0].shape[0], ins[0].device
+    moves = moves.to(device=dev, dtype=I32).contiguous()
+    if moves.shape != (b, AGENT_COUNT):
+        raise ValueError(f"moves must be i32[{b}, 4]")
     outs = [torch.empty_like(t) for t in ins]
-    lib = _ext.lib()
     _ext.check(lib.pomcpp_fused_step(
-        _ext.state_view(ins), _ext.state_view(outs), moves.data_ptr(), b,
-        torch.cuda.current_stream().cuda_stream,
+        _ext.game_view(ins), _ext.game_view(outs), moves.data_ptr(), b, stream,
     ), lib.pomcpp_error_string)
-    _ext.LAUNCHES["fused_step_kernel"] += 1
-    return _kernel_outputs(cs, outs, cs.timestep)
+    if stream is not None:
+        _ext.LAUNCHES["fused_step_kernel"] += 1
+    return CellState(*outs)
+
+
+def _fused_step_cuda(cs: CellState, moves) -> CellState:
+    return _fused_step_launch(_ext.lib(), torch.cuda.current_stream().cuda_stream,
+                              cs, moves)
 
 
 def _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record, auto_reset,

@@ -11,10 +11,14 @@ form of its JAX counterpart -- there is no ``vmap`` here:
 * ``env_step_auto_reset(es, moves)``-- same, but a finished game restarts
                                        on its next step
 * ``env_step_auto_reset_batch(es, moves, fused=True)`` -- the same step
-  through the port's fused step kernel (``engine.fused_step.fused_step``)
+  in one launch on the card: ``fused_step_kernel<true>`` steps the boards
+  and runs the env epilogue (done latch, terminal detection, the Philox
+  reset of finished boards) on the EnvState in its own dtypes, with no
+  host read
 * ``env_step_auto_reset_batch_fsm(...)`` -- mixed control: SimpleAgent
   opponents act inside the chunk kernel (``rollout_chunk`` with
-  ``steps=1``), learner lanes are injected
+  ``steps=1``), learner lanes are injected; on the card the epilogue
+  follows as ``env_merge_kernel``: two launches
 * ``act_all`` / ``rollout`` / ``rollout_stateful`` -- policy loops
 
 Only the plane-encoded ``CellState`` is ported; the queue-encoded exact
@@ -53,12 +57,19 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _ext
 from ..core.board_gen import put_agents_in_corners_perm
 from ..core.constants import AGENT_COUNT, C_PASSAGE, C_RIGID, C_WOOD, NUM_CELLS
 from ..core.state import I32, put_agents_in_corners
 from ..device import resolve_device
 from ..engine.cellular import CellState, cellular_step, empty_cell_state
-from ..engine.fused_step import _draw30, fused_step, philox4x32, rollout_chunk
+from ..engine.fused_step import (
+    _draw30,
+    fused_step,
+    game_arrays,
+    philox4x32,
+    rollout_chunk,
+)
 
 STREAM_ENV_CELLS, STREAM_ENV_FLAGS, STREAM_ENV_SEATS = 3, 4, 5
 
@@ -217,11 +228,12 @@ def _merge_done_and_reset(es: EnvState, game: CellState, team_mode: bool,
     ``fresh`` (test hook) is a ``CellState`` batch taken instead of the
     port's own reset draw.
 
+    This is the plain version of the env kernels' epilogue
+    (``csrc/env_warp.cuh``), which the env functions run on CPU tensors.
     Without ``fresh`` the reset boards are drawn on demand, for the done
-    boards only, which costs one device-to-host read per step.  Drawing for
-    every board in every step (what the jitted JAX code does; here
-    ``fresh=_draw_fresh_game(es.key, ...)``) gives the same result with no
-    host read and was no faster on the card (PERF.md).
+    boards only (one device-to-host read per step); drawing for every board
+    (``fresh=_draw_fresh_game(es.key, ...)``, what the jitted JAX code does)
+    gives the same result.
     """
     nxt = _detect_terminal(es._replace(game=game), team_mode, max_steps)
     if fresh is not None:
@@ -254,15 +266,83 @@ def env_step_auto_reset(es: EnvState, moves, team_mode: bool = False,
                                  randomize_positions, fresh)
 
 
+ENV_DTYPES = (torch.bool, I32, torch.bool, torch.int64)
+
+
+def _env_arrays(es: EnvState, device_type: str):
+    """done, winner, is_draw and key of ``es`` for the env kernels."""
+    b = es.done.shape[0]
+    arrays = []
+    for name, t, dtype, shape in zip(EnvState._fields[1:], es[1:], ENV_DTYPES,
+                                     ((b,), (b,), (b,), (b, 3))):
+        if t.device.type != device_type or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)} on a "
+                             f"{device_type} device")
+        arrays.append(t.to(dtype).contiguous())
+    return arrays
+
+
+def _env_launch(lib, stream, es: EnvState, team_mode: bool, max_steps: int,
+                randomize_positions: bool, fresh, moves=None, game=None):
+    """Marshal an env kernel's arguments and call its launcher in ``lib``:
+    with ``moves``, the fused env step (``fused_step_kernel<true>``); with
+    ``game``, the epilogue alone on that stepped batch
+    (``env_merge_kernel``).  ``stream=None`` is the tests' host build of
+    the source on CPU tensors, which does not count as a launch."""
+    dev_type = "cpu" if stream is None else "cuda"
+    if not -2 ** 31 <= max_steps < 2 ** 31:
+        raise ValueError("max_steps must fit in 32 bits")
+    ins = game_arrays(es.game, dev_type)
+    env_in = _env_arrays(es, dev_type)
+    b = ins[0].shape[0]
+    fresh_arrays = None
+    if fresh is not None:
+        fresh_arrays = game_arrays(
+            CellState(*(t.to(ins[0].device) for t in fresh)), dev_type)
+        if fresh_arrays[0].shape[0] != b:
+            raise ValueError(f"fresh must hold {b} boards")
+    outs = [torch.empty_like(t) for t in ins]
+    env_out = [torch.empty_like(t) for t in env_in]
+    args = (_ext.env_view(env_in), _ext.game_view(outs),
+            _ext.env_view(env_out), _ext.game_view(fresh_arrays))
+    cfg = (int(team_mode), int(max_steps), int(randomize_positions), stream)
+    if game is None:
+        moves = moves.to(device=ins[0].device, dtype=I32).contiguous()
+        if moves.shape != (b, AGENT_COUNT):
+            raise ValueError(f"moves must be i32[{b}, 4]")
+        err = lib.pomcpp_env_step(_ext.game_view(ins), *args, moves.data_ptr(),
+                                  b, *cfg)
+        kernel = "fused_env_step_kernel"
+    else:
+        stepped = game_arrays(game, dev_type)
+        err = lib.pomcpp_env_merge(_ext.game_view(stepped), *args, b, *cfg)
+        kernel = "env_merge_kernel"
+    _ext.check(err, lib.pomcpp_error_string)
+    if stream is not None:
+        _ext.LAUNCHES[kernel] += 1
+    return EnvState(CellState(*outs), *env_out)
+
+
+def _env_launch_cuda(es, team_mode, max_steps, randomize_positions, fresh,
+                     **step):
+    return _env_launch(_ext.lib(), torch.cuda.current_stream().cuda_stream,
+                       es, team_mode, max_steps, randomize_positions, fresh,
+                       **step)
+
+
 def env_step_auto_reset_batch(es: EnvState, moves, team_mode: bool = False,
                               fused: bool = False, max_steps: int = 0,
                               randomize_positions: bool = False, fresh=None,
                               device=None) -> EnvState:
     """Auto-reset step of the whole batch.
 
-    ``fused=True`` steps through ``fused_step`` -- on the card one launch of
-    ``fused_step_kernel``; explosion chains are capped at 4 rounds per step
-    there, as in the JAX package's fused path.  ``fused=False`` steps
+    ``fused=True`` on the card is ONE launch of ``fused_step_kernel<true>``
+    and no host read: the boards that were done before the step are reset
+    from their key rows (or from ``fresh``), the others take the fused step
+    -- explosion chains capped at 4 rounds per step, as in the JAX
+    package's fused path -- and latch their result.  On CPU tensors the
+    same function is ``fused_step_plain`` followed by
+    ``_merge_done_and_reset``, the plain version.  ``fused=False`` steps
     through ``cellular_step`` (chains uncapped) and equals
     ``env_step_auto_reset``.
     """
@@ -270,6 +350,9 @@ def env_step_auto_reset_batch(es: EnvState, moves, team_mode: bool = False,
         return env_step_auto_reset(es, moves, team_mode, max_steps,
                                    randomize_positions, fresh, device)
     es, moves, device = _prepare(es, moves, device)
+    if device.type == "cuda":
+        return _env_launch_cuda(es, team_mode, max_steps, randomize_positions,
+                                fresh, moves=moves)
     game = fused_step(es.game, moves, device=device)
     game = game._replace(timestep=game.timestep + 1)
     return _merge_done_and_reset(es, game, team_mode, max_steps,
@@ -283,12 +366,13 @@ def env_step_auto_reset_batch_fsm(es: EnvState, learner_moves, fsm_state,
                                   randomize_positions: bool = False,
                                   fresh=None, device=None):
     """Mixed-control step: SimpleAgent opponents inside the chunk kernel,
-    learner moves injected; one launch for the whole batch.
+    learner moves injected.
 
     Same env semantics as ``env_step_auto_reset_batch``, but the lanes not
     in ``learner_slots`` act through the FSM of ``engine.fsm`` inside
     ``rollout_chunk(steps=1, policy="simple")`` -- on the card one launch of
-    the simple chunk kernel.  ``fsm_state`` is the ten-array state
+    the simple chunk kernel, then one of ``env_merge_kernel`` for the
+    epilogue.  ``fsm_state`` is the ten-array state
     (``simple_fsm_state_init``); ``seed`` keys the Philox draws of the FSM's
     rands and must differ from step to step.  ``rand_moves`` (i32[B, 4],
     tests) supplies those draws instead; the learner lanes of the merged
@@ -309,6 +393,9 @@ def env_step_auto_reset_batch_fsm(es: EnvState, learner_moves, fsm_state,
         fsm_state=fsm_state, inject_slots=slots,
         prng_rand=rand_moves is None, device=device,
     )
+    if device.type == "cuda":
+        return _env_launch_cuda(es, team_mode, max_steps, randomize_positions,
+                                fresh, game=game), fsm2
     return _merge_done_and_reset(es, game, team_mode, max_steps,
                                  randomize_positions, fresh), fsm2
 

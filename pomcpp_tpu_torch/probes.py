@@ -20,13 +20,17 @@ plain PyTorch version beside it:
 * ``probe_reduce`` -- reductions: ``sumred``, ``axis1_any``, ``packed_sum``,
   ``min_red4``, ``onehot_rd`` per row, ``any_plane`` and ``any4`` over each
   tile of 128 rows;
-* ``probe_dot``    -- f32 products computed in the kernel: ``dot`` and
-  ``dotred``.
+* ``probe_dot``    -- f32 products computed in the kernel: ``dot`` (the
+  chain of [R, 128] x [128, 128] products, on the tensor cores in
+  ``probe_dot_tc_kernel``: TF32 pieces, three passes, f32 accumulation) and
+  ``dotred`` (one-column products inside row reductions,
+  ``probe_dot_kernel``).
 
 ``layout`` picks how a row maps onto threads: ``"cta"`` is one row per
 128-thread CTA with exchange through shared memory and ``__syncthreads``
 (the engine kernels' layout); ``"warp"`` is one row per warp, four cells per
 thread, exchange through ``__shfl_sync``.  Both give the same output.
+``dot`` takes no layout: a warpgroup of its kernel owns 64 rows.
 ``rows`` / ``tile`` restrict the work to the first ``rows`` rows of every
 ``tile`` rows, the sublane script's sweep; the other rows are copied.
 
@@ -347,7 +351,7 @@ def _probe_dot_cuda(x, w, op, k, layout, rows, tile):
     _ext.check(lib.pomcpp_probe_dot(
         DOT_OPS[op], lay, x.data_ptr(), w.data_ptr(), out.data_ptr(), n, k,
         rows, tile, stream), lib.pomcpp_probes_error_string)
-    _ext.LAUNCHES["probe_dot_kernel"] += 1
+    _ext.LAUNCHES[DOT_KERNEL[op]] += 1
     return out
 
 
@@ -404,7 +408,9 @@ def probe_reduce(plane, agents, op: str, k: int, layout: str = "cta",
 def probe_dot(x, w, op: str, k: int, layout: str = "cta", rows: int = TILE,
               tile: int = TILE, device=None):
     """``k`` iterations of chained products with ``w`` f32 ``[128, 128]``:
-    ``dot`` on ``x`` f32 ``[R, 128]`` (32 products + 1.0 per iteration),
+    ``dot`` on ``x`` f32 ``[R, 128]`` (32 products + 1.0 per iteration; on
+    the card from TF32 pieces, exact wherever every value is an integer
+    below 2^13, else within 2^-15 of ``|x| @ |w|`` a product),
     ``dotred`` on ``x`` i32 ``[R, 128]`` (8 row sums by two 16-bit-half
     products per iteration)."""
     _known(op, DOT_OPS)
@@ -441,11 +447,15 @@ def _patterns():
     out = [
         Pattern("sublane", "elem", "elem", "elem", 200, 64, 64),
         Pattern("sublane", "roll", "shift", "roll", 200, 64, 64),
-        # 32 x (128 FMAs + 1 add) and 8 x two [.,128] @ [128,8] products.
+        # dot: 32 x (128 FMAs + 1 add) per element and iteration, as f32
+        # operations outside the tensor cores (the kernel's tensor-core work
+        # is ``tensor_ops``).
         Pattern("sublane", "dot", "dot", "dot", 200, 32, 32 * 257,
                 torch.float32),
         Pattern("sublane", "sumred", "reduce", "sumred", 200, 8, 16),
-        Pattern("sublane", "dotred", "dot", "dotred", 200, 8, 8 * 38),
+        # Per element, 8 rounds of: & and >>, two int -> f32 conversions,
+        # two FMAs into the one column the script reads, the add of r.
+        Pattern("sublane", "dotred", "dot", "dotred", 200, 8, 8 * 10),
     ]
     for dtype in INT_TYPES:
         out.append(Pattern("i16", "chain", "elem", "chain", 300, 1, 48, dtype))
@@ -477,6 +487,21 @@ PATTERNS = _patterns()
 SCRIPTS = ("sublane", "i16", "layout", "patterns", "reductions")
 FAMILY_KERNEL = {"elem": "probe_elem_kernel", "shift": "probe_shift_kernel",
                  "reduce": "probe_reduce_kernel", "dot": "probe_dot_kernel"}
+DOT_KERNEL = {"dot": "probe_dot_tc_kernel", "dotred": "probe_dot_kernel"}
+TC_PASSES = 3     # TF32 products per f32 product in probe_dot_tc_kernel
+
+
+def kernel_of(p: Pattern) -> str:
+    """The kernel that runs pattern ``p`` (its launch count's key)."""
+    return DOT_KERNEL[p.op] if p.family == "dot" else FAMILY_KERNEL[p.family]
+
+
+def tensor_ops(p: Pattern, n_rows: int, k=None) -> int:
+    """Tensor-core operations that ``probe_dot_tc_kernel`` issues for the
+    ``dot`` pattern: ``TC_PASSES`` products of 2 x 128 operations per
+    output element, 32 a loop iteration."""
+    k = p.k if k is None else k
+    return n_rows * LANES * k * 32 * 2 * LANES * TC_PASSES
 
 
 def work(p: Pattern, n_rows: int, k=None) -> tuple[int, int]:

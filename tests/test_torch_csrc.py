@@ -6,12 +6,16 @@ Three kinds of test:
   library's file name (an edited header must trigger a rebuild), the
   warp-layout code holds no CTA-wide barrier, and the launch grid covers
   the batch;
-* the chunk kernel's OWN source run on the CPU: ``csrc/host_emu`` stands in
-  for ``cuda_runtime.h``, g++ compiles ``fused_step.cu`` as plain C++, and a
-  warp runs as 32 fibers that meet at every ``*_sync`` intrinsic.  Results
-  are held bit for bit (tolerance: exact equality, all state is integer)
-  against ``rollout_chunk_plain``, which ``tests/test_torch_chunk.py`` and
-  ``tests/test_torch_fsm.py`` hold against the JAX functions;
+* the warp-layout kernels' OWN source run on the CPU: ``csrc/host_emu``
+  stands in for ``cuda_runtime.h``, g++ compiles ``fused_step.cu`` as plain
+  C++, and a warp runs as 32 fibers that meet at every ``*_sync``
+  intrinsic.  Results are held bit for bit (tolerance: exact equality, all
+  state is integer) against the plain versions -- the chunk kernel against
+  ``rollout_chunk_plain``, the step kernel against ``fused_step_plain``,
+  the env kernels against the env functions on CPU tensors -- which
+  ``tests/test_torch_chunk.py``, ``test_torch_fsm.py``,
+  ``test_torch_fused_step.py`` and ``test_torch_env.py`` hold against the
+  JAX functions;
 * the emulator itself: it must report an intrinsic reached by only part of
   a warp instead of hanging or passing.
 """
@@ -25,14 +29,16 @@ import pytest
 import torch
 
 import chip_smoke
-from pomcpp_tpu_torch import _ext
+from pomcpp_tpu_torch import _ext, probes
 from pomcpp_tpu_torch.convert import diff_fields
 from pomcpp_tpu_torch.core.board_gen import random_cell_state
 from pomcpp_tpu_torch.engine import fused_step as fs
+from pomcpp_tpu_torch.engine.cellular import empty_cell_state
 from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
+from pomcpp_tpu_torch.env import environment as env
 
 CSRC = _ext.CSRC
-WARP_HEADERS = ("step_warp.cuh", "fsm_warp.cuh")
+WARP_HEADERS = ("step_warp.cuh", "fsm_warp.cuh", "env_warp.cuh")
 CTA_BARRIER = re.compile(
     r"__syncthreads|bar\.sync|barrier\.sync|__cluster|cooperative_groups"
     r"|cuda::barrier|mbarrier")
@@ -68,13 +74,19 @@ def test_every_cu_file_is_a_library():
 def test_warp_layout_header_has_no_cta_barrier(header):
     code = _strip_comments((CSRC / header).read_text())
     assert not CTA_BARRIER.search(code)
-    assert "__shfl" in code or "__ballot_sync" in code
+    # Warp intrinsics, or (the env epilogue) the lane layout of a warp's board.
+    assert any(k in code for k in ("__shfl", "__ballot_sync", "const Geo& g"))
+
+
+def _kernel_source(name: str, end: str) -> str:
+    """The comment-free source of kernel ``name`` up to ``end``."""
+    code = _strip_comments((CSRC / "fused_step.cu").read_text())
+    start = code.index(f"{name}(")
+    return code[start:code.index(end, start)]
 
 
 def _chunk_kernel_source() -> str:
-    code = _strip_comments((CSRC / "fused_step.cu").read_text())
-    start = code.index("rollout_chunk_kernel(")
-    return code[start:code.index("fsm_act_kernel(", start)]
+    return _kernel_source("rollout_chunk_kernel", "fsm_act_kernel(")
 
 
 def test_chunk_kernel_runs_the_warp_layout_without_a_cta_barrier():
@@ -86,14 +98,34 @@ def test_chunk_kernel_runs_the_warp_layout_without_a_cta_barrier():
     assert "Shared sh" not in body
 
 
+@pytest.mark.parametrize("kernel,end", [
+    ("fused_step_kernel", "env_merge_kernel("),
+    ("env_merge_kernel", "rollout_chunk_kernel("),
+])
+def test_step_and_env_kernels_run_the_warp_layout_without_a_cta_barrier(
+        kernel, end):
+    body = _kernel_source(kernel, end)
+    assert not CTA_BARRIER.search(body)
+    assert "blockIdx.x * CHUNK_WARPS" in body and "if (b >= batch) return;" in body
+    # A board that was done skips the step, by a warp-uniform vote.
+    assert "__any_sync(wl::FULL, ein.done[b] != 0)" in body
+    if kernel == "fused_step_kernel":
+        assert "wl::step_board(" in body
+        assert not re.search(r"(?<!wl::)\bstep_board\(", body)
+    # The CTA body of the one-step kernel is gone.
+    assert "step_board" not in _strip_comments(
+        (CSRC / "step_block.cuh").read_text())
+
+
 def test_chunk_grid_is_the_launchers():
-    """Both chunk launchers start the grid that ``pomcpp_chunk_grid``
-    reports, for ``CHUNK_WARPS`` warps a CTA, and a warp past the end of
-    the batch returns."""
+    """The chunk, step and env launchers start the grid that
+    ``pomcpp_chunk_grid`` reports, for ``CHUNK_WARPS`` warps a CTA, and a
+    warp past the end of the batch returns."""
     code = _strip_comments((CSRC / "fused_step.cu").read_text())
     assert "return (batch + CHUNK_WARPS - 1) / CHUNK_WARPS;" in code
-    assert code.count("pomcpp::chunk_grid(batch)") == 3
-    assert code.count("pomcpp::CHUNK_WARPS * 32, stream") == 2
+    assert code.count("pomcpp::chunk_grid(batch)") == 6
+    assert code.count("pomcpp::CHUNK_WARPS * 32, stream") == 4
+    assert code.count("pomcpp::CHUNK_WARPS * 32,\n") == 1
     assert "blockIdx.x * CHUNK_WARPS + warp" in _chunk_kernel_source()
     assert "if (b >= batch) return;" in _chunk_kernel_source()
 
@@ -119,7 +151,7 @@ class _Residency:
     def pomcpp_chunk_warps(self):
         return 4
 
-    def pomcpp_chunk_ctas_per_sm(self, simple):
+    def pomcpp_ctas_per_sm(self, kernel):
         return 4
 
 
@@ -145,7 +177,7 @@ def test_build_log_describes_a_library_built_by_an_earlier_run(
     monkeypatch.setattr(_ext, "nvcc", no_compiler)
     assert _ext.build() == outs
     assert _ext.build_log() == first
-    res = chip_smoke.chunk_residency(
+    res = chip_smoke.warp_residency(
         chip_smoke.kernel_resources(_ext.build_log(("kernels",))),
         _Residency())
     assert res["rollout_chunk_kernel"] == dict(
@@ -154,9 +186,10 @@ def test_build_log_describes_a_library_built_by_an_earlier_run(
         boards_per_sm=16)
     # A build with the phase clocks is a library, and a log, of its own.
     assert _ext.build_log(("kernels",), chip_smoke.PHASE_CLOCKS) == ""
-    empty = chip_smoke.chunk_residency(chip_smoke.kernel_resources(""),
+    empty = chip_smoke.warp_residency(chip_smoke.kernel_resources(""),
                                        _Residency())
     assert empty["rollout_chunk_simple_kernel"]["boards_per_sm"] == 16
+    assert empty["fused_env_step_kernel"]["boards_per_sm"] == 16
 
 
 # --- the kernel's source on the CPU ---------------------------------------------
@@ -195,10 +228,17 @@ def test_host_build_launches_are_not_counted(host_lib):
     _both(host_lib, cs, 7, 2, "random")
     _both(host_lib, cs, 7, 2, "simple",
           fsm_state=simple_fsm_state_init(2, "cpu"))
+    fs._fused_step_launch(host_lib, None, cs, torch.zeros((2, 4)))
+    es = env.env_reset(3, 2, device="cpu")
+    env._env_launch(host_lib, None, es, False, 0, False, None,
+                    moves=torch.zeros((2, 4)))
+    env._env_launch(host_lib, None, es, False, 0, False, None, game=es.game)
     assert not any(_ext.LAUNCHES.values())
     with pytest.raises(ValueError, match="not on a cuda device"):
         fs._rollout_chunk_launch(host_lib, 0, cs, 7, 2, 6, None, False, True,
                                  None, None, (), False)
+    with pytest.raises(ValueError, match="not on a cuda device"):
+        fs._fused_step_launch(host_lib, 0, cs, torch.zeros((2, 4)))
 
 
 def _batch(b, seed):
@@ -278,16 +318,13 @@ def test_chunk_source_matches_plain_on_every_joint_move_with_kicks(host_lib,
     assert int(((p[0].bomb_dir != 0) & (p[0].bomb_timer > 0)).sum()) > 100
 
 
-@pytest.mark.parametrize("dead", [(), (0,), (2,)])
-def test_chunk_source_matches_plain_on_every_joint_move_in_a_ring(host_lib,
-                                                                  dead):
-    """Four agents on a 2x2 square: the moves that chase each other round
-    the ring (no movement root), with and without a dead agent in it."""
-    from pomcpp_tpu_torch.engine.cellular import empty_cell_state
+def _joint_moves():
+    codes = torch.arange(6 ** 4)
+    return torch.stack([(codes // 6 ** i) % 6 for i in range(4)], 1).int()
 
-    n = 6 ** 4
-    codes = torch.arange(n)
-    moves = torch.stack([(codes // 6 ** i) % 6 for i in range(4)], 1).int()
+
+def _ring(dead):
+    """6^4 copies of four agents on a 2x2 square, ``dead`` of them dead."""
     cs = empty_cell_state(1, "cpu")
     board = cs.board.clone()
     ring = ((4, 4), (5, 4), (5, 5), (4, 5))
@@ -299,13 +336,142 @@ def test_chunk_source_matches_plain_on_every_joint_move_in_a_ring(host_lib,
         agent_x=torch.tensor([[x for x, _ in ring]], dtype=torch.int32),
         agent_y=torch.tensor([[y for _, y in ring]], dtype=torch.int32),
         agent_dead=gone, alive_count=4 - gone.sum(1, dtype=torch.int32))
-    cs = _copies(cs, n)
-    k, p = _both(host_lib, cs, 1, 1, "random", moves=moves[None],
+    return _copies(cs, 6 ** 4)
+
+
+@pytest.mark.parametrize("dead", [(), (0,), (2,)])
+def test_chunk_source_matches_plain_on_every_joint_move_in_a_ring(host_lib,
+                                                                  dead):
+    """Four agents on a 2x2 square: the moves that chase each other round
+    the ring (no movement root), with and without a dead agent in it."""
+    cs = _ring(dead)
+    k, p = _both(host_lib, cs, 1, 1, "random", moves=_joint_moves()[None],
                  auto_reset=False)
     _same(k, p)
     if not dead:    # some joint move turns the whole ring
         turned = (p[0].agent_x != cs.agent_x) | (p[0].agent_y != cs.agent_y)
         assert int(turned.all(1).sum()) > 0
+
+
+# --- the step kernel and the env kernels on the CPU -----------------------------
+
+
+def _step_both(host_lib, cs, moves):
+    k = fs._fused_step_launch(host_lib, None, cs, moves)
+    p = fs.fused_step_plain(cs, moves)
+    assert not diff_fields(k, p, skip=())
+    return p
+
+
+def test_step_source_matches_plain_on_every_joint_move_with_kicks(host_lib):
+    """Every 6^4 joint move on the kick-heavy state, two steps deep."""
+    cs = _copies(chip_smoke.kick_heavy_state("cpu"), 6 ** 4)
+    moves = _joint_moves()
+    for _ in range(2):
+        cs = _step_both(host_lib, cs, moves)
+    assert int(((cs.bomb_dir != 0) & (cs.bomb_timer > 0)).sum()) > 100
+
+
+@pytest.mark.parametrize("dead", [(), (0,), (2,)])
+def test_step_source_matches_plain_on_every_joint_move_in_a_ring(host_lib,
+                                                                 dead):
+    _step_both(host_lib, _ring(dead), _joint_moves())
+
+
+@pytest.mark.parametrize("b", [1021, 5, 3, 1])
+def test_step_source_matches_plain_on_ragged_batches(host_lib, b):
+    """The last CTA of four warps partly or mostly without a board."""
+    cs, gen = _batch(b, 300 + b)
+    cs = chip_smoke.close_quarters(cs, gen)
+    for _ in range(3 if b > 5 else 12):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
+        cs = _step_both(host_lib, cs, mv)
+
+
+def _same_env(card, plain, what):
+    assert not diff_fields(card.game, plain.game, skip=()), what
+    for name in ("done", "winner", "is_draw", "key"):
+        a, b = getattr(card, name), getattr(plain, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), f"{what}: {name}"
+
+
+def _env_start(b, done):
+    """Boards that win, draw or finish a team at once and boards already
+    done (``done="some"``), every board done (``"all"``) or none, from
+    fresh games (``"none"``)."""
+    if done == "none":
+        return env.env_reset(13, b, device="cpu")
+    es = chip_smoke.env_held_start(b, 3)
+    if done == "all":
+        es = es._replace(done=torch.ones(b, dtype=torch.bool))
+    return es
+
+
+ENV_CASES = {
+    "ffa": dict(),
+    "ffa_max_steps": dict(max_steps=9),
+    "team_max_steps": dict(team_mode=True, max_steps=11),
+    "randomize_positions": dict(max_steps=9, randomize_positions=True),
+}
+
+
+def _env_kwargs(case):
+    kw = dict(team_mode=False, max_steps=0, randomize_positions=False)
+    kw.update(ENV_CASES[case])
+    return kw
+
+
+@pytest.mark.parametrize("done", ["none", "some", "all"])
+@pytest.mark.parametrize("case", sorted(ENV_CASES) + ["fresh"])
+def test_env_step_source_matches_plain(host_lib, case, done):
+    """``fused_step_kernel<true>`` against ``env_step_auto_reset_batch(
+    fused=True)`` on CPU tensors, every EnvState field after every step."""
+    b, steps = 48, 16
+    kw = _env_kwargs("team_max_steps" if case == "fresh" else case)
+    card = plain = _env_start(b, done)
+    gen = torch.Generator().manual_seed(17)
+    resets = 0
+    for t in range(steps):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
+        fresh = None
+        if case == "fresh":     # the test hook: seats drawn, not in order
+            fresh = random_cell_state(b, generator=gen,
+                                      randomize_positions=True)
+        resets += int(plain.done.sum())
+        card = env._env_launch(host_lib, None, card, kw["team_mode"],
+                               kw["max_steps"], kw["randomize_positions"],
+                               fresh, moves=mv)
+        plain = env.env_step_auto_reset_batch(plain, mv, fused=True,
+                                              fresh=fresh, device="cpu", **kw)
+        _same_env(card, plain, f"{case} step {t}")
+    assert resets > 0
+
+
+@pytest.mark.parametrize("done", ["none", "some", "all"])
+@pytest.mark.parametrize("case", sorted(ENV_CASES) + ["fresh"])
+def test_env_merge_source_matches_plain(host_lib, case, done):
+    """``env_merge_kernel`` against ``_merge_done_and_reset`` on a batch
+    stepped by the plain one-step simple chunk, as the mixed-control env
+    step runs them."""
+    b, steps = 48, 12
+    kw = _env_kwargs("ffa_max_steps" if case == "fresh" else case)
+    card = plain = _env_start(b, done)
+    fsm = simple_fsm_state_init(b, "cpu")
+    gen = torch.Generator().manual_seed(19)
+    for t in range(steps):
+        mv = torch.randint(0, 6, (1, b, 4), generator=gen, dtype=torch.int32)
+        fresh = None
+        if case == "fresh":
+            fresh = random_cell_state(b, generator=gen,
+                                      randomize_positions=True)
+        game, fsm = fs.rollout_chunk_plain(
+            plain.game, 40 + t, 1, "simple", moves=mv, auto_reset=False,
+            fsm_state=fsm, inject_slots=(0,), prng_rand=True)
+        card = env._env_launch(host_lib, None, card, kw["team_mode"],
+                               kw["max_steps"], kw["randomize_positions"],
+                               fresh, game=game)
+        plain = env._merge_done_and_reset(plain, game, fresh=fresh, **kw)
+        _same_env(card, plain, f"{case} step {t}")
 
 
 @pytest.mark.parametrize("b,steps,inject", [
@@ -334,6 +500,64 @@ def test_simple_chunk_source_carries_its_state_across_chunks(host_lib):
         _same(k, p)
         assert all(torch.equal(a, c) for a, c in zip(fk, fp))
         ck, fk, cp, fp = k[0], k[3], p[0], p[3]
+
+
+# --- probe_dot_tc_kernel's arithmetic on the CPU --------------------------------
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` on float32 bits: 10 mantissa bits kept, to
+    nearest, ties away from zero."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _pieces(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _kept_product(x, w_pieces, d=torch.float64):
+    """One product as the kernel forms it: lo(x) hi(w) + hi(x) lo(w) +
+    hi(x) hi(w), the products of pieces summed in ``d`` (float64: exactly;
+    float32, the kernel's accumulator, is exact on integers below 2^24)."""
+    (xh, xl), (wh, wl) = _pieces(x), w_pieces
+    return xl.to(d) @ wh.to(d) + xh.to(d) @ wl.to(d) + xh.to(d) @ wh.to(d)
+
+
+@pytest.mark.parametrize("seed", [None, 5])
+def test_dot_pieces_are_exact_on_the_held_inputs(seed):
+    """On the script's inputs (``seed=None``: ones and the shift matrix) and
+    the seeded ones (integers 0..3), at the script's K: every value stays
+    an integer below 2^13, so the kept cross products of the TF32 pieces
+    give ``x @ w`` exactly and the chain equals ``probe_dot_plain``."""
+    p = next(q for q in probes.PATTERNS if q.op == "dot")
+    inputs = probes.pattern_inputs(p, 8, "cpu", seed=seed)
+    x, w = inputs["x"], inputs["w"]
+    want = probes.probe_dot_plain(x, w, "dot", p.k)
+    w_pieces = _pieces(w)
+    peak = x.abs().max()
+    for _ in range(p.k * 32):
+        x = _kept_product(x, w_pieces, torch.float32) + 1.0
+        peak = torch.maximum(peak, x.abs().max())
+    assert float(peak) < 2 ** 13 and torch.equal(x, want)
+    assert torch.equal(want, want.round())
+
+
+def test_dot_pieces_on_random_floats_stay_within_the_stated_bound():
+    """Random floats: the dropped lo(x) lo(w) term and lo's own rounding
+    keep a product within 2^-20 of ``|x| @ |w|`` of the exact one (the
+    kernel's f32 accumulation adds at most 2^-16 more; the card test holds
+    the sum of both, 2^-15)."""
+    gen = torch.Generator().manual_seed(7)
+    x = torch.rand((64, 128), generator=gen) * 2 - 1
+    w = torch.rand((128, 128), generator=gen) * 2 - 1
+    exact = x.double() @ w.double()
+    scale = x.double().abs() @ w.double().abs()
+    err = (_kept_product(x, _pieces(w)) - exact).abs()
+    assert bool((err <= 2 ** -20 * scale).all())
+    # Without the lo pieces (one TF32 pass) the same bound fails.
+    hi = _tf32(x).double() @ _tf32(w).double()
+    assert not bool(((hi - exact).abs() <= 2 ** -20 * scale).all())
 
 
 DIVERGENT = r"""

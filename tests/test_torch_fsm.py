@@ -172,7 +172,7 @@ def test_fsm_state_layout_round_trips():
     # Fresh states agree across the two layouts and with the JAX package.
     init = simple_fsm_state_init(6, "cpu")
     assert all(torch.equal(a, b) for a, b in
-               zip(init, simple_state_to_fsm(simple_agent_init(shape))))
+               zip(init, simple_state_to_fsm(simple_agent_init(shape, "cpu"))))
     assert all(np.array_equal(np.asarray(a), b.numpy())
                for a, b in zip(jax_fsm_init(6), init))
 

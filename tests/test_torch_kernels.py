@@ -8,6 +8,8 @@ card: ``python -m pytest tests/test_torch_kernels.py -q -m gpu``.
 import pytest
 import torch
 
+import chip_smoke
+from pomcpp_tpu_torch import _ext
 from pomcpp_tpu_torch.convert import diff_fields
 from pomcpp_tpu_torch.core.board_gen import random_cell_state
 from pomcpp_tpu_torch.engine.fsm import (
@@ -16,6 +18,7 @@ from pomcpp_tpu_torch.engine.fsm import (
     simple_fsm_state_init,
 )
 from pomcpp_tpu_torch.engine.fused_step import (
+    _to_device,
     fused_step,
     fused_step_plain,
     rollout_chunk,
@@ -55,6 +58,18 @@ def test_step_kernel_matches_plain(cuda):
 # One board per warp, four warps per CTA: batches that fill the last CTA,
 # leave it ragged (b % 4 != 0) and do not fill one CTA (b < 4).
 CHUNK_BATCHES = [256, 1021, 5, 3, 1]
+
+
+@pytest.mark.parametrize("b", CHUNK_BATCHES)
+def test_step_kernel_matches_plain_on_ragged_batches(cuda, b):
+    cs, gen = _batch(cuda, b, 10 + b)
+    k = p = cs
+    for t in range(24):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, device=cuda,
+                           dtype=torch.int32)
+        k = fused_step(k, mv)
+        p = fused_step_plain(p, mv)
+        assert not diff_fields(k, p, skip=()), f"step {t}"
 
 
 @pytest.mark.parametrize("b", CHUNK_BATCHES)
@@ -134,6 +149,87 @@ def test_fsm_env_step_on_the_card_matches_cpu(cuda):
             plain, mv, fsm_p, (0,), 70 + t, max_steps=10, device="cpu")
         _same_env(card, plain, f"step {t}")
         assert all(torch.equal(a.cpu(), c) for a, c in zip(fsm_c, fsm_p))
+
+
+@pytest.mark.parametrize("all_done", [False, True])
+@pytest.mark.parametrize("inject", [False, True])
+def test_env_kernels_on_the_card_match_cpu(cuda, inject, all_done):
+    """Both env kernels (the fused env step and the merge after the
+    one-step simple chunk) in team mode with ``randomize_positions``,
+    from some or every board done, with the port's own resets or with
+    injected fresh games, against the CPU; each call launches its one
+    port kernel and reads nothing back."""
+    b = 192
+    start = chip_smoke.env_held_start(b, 5, all_done)
+    kw = dict(team_mode=True, max_steps=10, randomize_positions=True)
+    gen = torch.Generator().manual_seed(7)
+    for fsm_path in (False, True):
+        plain, card = start, env._env_to_device(start, cuda)
+        fsm_p = simple_fsm_state_init(b, "cpu")
+        fsm_c = simple_fsm_state_init(b, cuda)
+        for t in range(20):
+            mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
+            fresh = random_cell_state(b, generator=gen,
+                                      randomize_positions=True) \
+                if inject else None
+            # Everything on the card before the call: a copy to the card
+            # is a synchronizing call too.
+            fresh_c = None if fresh is None else _to_device(fresh, cuda)
+            mv_c = mv.to(cuda)
+            before = dict(_ext.LAUNCHES)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                if fsm_path:
+                    card, fsm_c = env.env_step_auto_reset_batch_fsm(
+                        card, mv_c, fsm_c, (0,), 30 + t, fresh=fresh_c, **kw)
+                else:
+                    card = env.env_step_auto_reset_batch(
+                        card, mv_c, fused=True, fresh=fresh_c, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            want = {"rollout_chunk_simple_kernel", "env_merge_kernel"} \
+                if fsm_path else {"fused_env_step_kernel"}
+            assert {k for k, v in _ext.LAUNCHES.items()
+                    if v == before[k] + 1} == want
+            assert sum(_ext.LAUNCHES.values()) == \
+                sum(before.values()) + len(want)
+            if fsm_path:
+                plain, fsm_p = env.env_step_auto_reset_batch_fsm(
+                    plain, mv, fsm_p, (0,), 30 + t, fresh=fresh,
+                    device="cpu", **kw)
+                assert all(torch.equal(a.cpu(), c) for a, c in zip(fsm_c, fsm_p))
+            else:
+                plain = env.env_step_auto_reset_batch(
+                    plain, mv, fused=True, fresh=fresh, device="cpu", **kw)
+            _same_env(card, plain, f"fsm={fsm_path} step {t}")
+
+
+def test_dot_tc_kernel_is_exact_on_the_held_inputs_at_the_scripts_k(cuda):
+    p = next(q for q in probes.PATTERNS if q.op == "dot")
+    for seed in (None, 3):
+        inputs = probes.pattern_inputs(p, 256, cuda, seed=seed)
+        got = probes.run_pattern(p, inputs)
+        assert torch.equal(got, probes.run_pattern(p, inputs, plain=True))
+
+
+def test_dot_tc_kernel_on_random_floats_is_within_its_tolerance(cuda):
+    """Random floats, 32 chained products against float64.  Tolerance:
+    each product within 2^-15 of |x| @ |w| (TF32 pieces with lo(x) lo(w)
+    dropped, 48 f32 accumulations), each ``+ 1.0`` within 2^-24 of the
+    result, carried along the chain through |w|; twice that bound covers
+    the second-order terms."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand((256, 128), generator=gen) * 2 - 1
+    w = (torch.rand((128, 128), generator=gen) * 2 - 1) / 128
+    got = probes.probe_dot(x.to(cuda), w.to(cuda), "dot", 1).cpu().double()
+    wa = w.double().abs()
+    ref, bound = x.double(), torch.zeros((256, 128), dtype=torch.float64)
+    for _ in range(32):
+        bound = bound @ wa + 2 ** -15 * (ref.abs() @ wa)
+        ref = ref @ w.double() + 1.0
+        bound = bound + 2 ** -24 * ref.abs()
+    assert bool(((got - ref).abs() <= 2 * bound).all())
 
 
 @pytest.mark.parametrize("layout", sorted(probes.LAYOUTS))

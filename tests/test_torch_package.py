@@ -87,6 +87,21 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         fs.fused_step(cs, mv, device="cuda")
 
 
+@pytest.mark.parametrize("make", ["empty_cell_state", "simple_agent_init"])
+def test_state_constructors_default_to_the_card(monkeypatch, make):
+    """Like every entry point, the two state constructors put their state
+    on the card unless the caller names the CPU."""
+    from pomcpp_tpu_torch.agents.simple import simple_agent_init
+    from pomcpp_tpu_torch.engine.cellular import empty_cell_state
+
+    fn, arg = {"empty_cell_state": (empty_cell_state, 2),
+               "simple_agent_init": (simple_agent_init, (2, 4))}[make]
+    assert all(t.device.type == "cpu" for t in fn(arg, "cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(arg)
+
+
 def test_simple_policy_runs_on_the_cpu():
     cs = random_cell_state(2, seed=0, device="cpu")
     fsm0 = simple_fsm_state_init(2, "cpu")

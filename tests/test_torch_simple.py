@@ -223,7 +223,7 @@ def test_joint_act_matches_jax(case):
     jast = jax.tree.map(lambda x: jnp.broadcast_to(x, (B, 4) + x.shape),
                         simple_agent_init())
     pcs = to_torch(cs, "cpu")
-    past = port_agent_init((B, 4))
+    past = port_agent_init((B, 4), "cpu")
     moved = 0
     for t in range(steps):
         live = ~np.asarray(jcs.agent_dead)
