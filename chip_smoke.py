@@ -15,8 +15,12 @@ Phases (any failure exits non-zero before the result line):
               of agents, 4096 boards with mixed kick stepped 50 steps with
               host-drawn moves, and ragged and tiny batches (1021, 5, 3, 1);
 3. fsm     -- the SimpleAgent act kernel vs ``fsm_act_plain``, bit for bit
-              (moves and the ten FSM arrays): 4096 generated boards stepped
-              30 acts, close-quarters boards and boards with dead agents;
+              (moves and the ten FSM arrays), the FSM state carried from act
+              to act: 4096 generated boards stepped 30 acts, close-quarters
+              boards, boards with dead agents, 6^4 copies of the kick-heavy
+              state (bombs in range: danger map and flee path) and of the
+              2x2 ring with none, agent 0 and agent 2 dead, two acts each,
+              and ragged and tiny batches (1021, 5, 3, 1);
 4. chunk   -- the chunk kernel vs ``rollout_chunk_plain``, bit for bit, at
               1024 boards x 64 steps: harmless and random once with injected
               moves, injected reset boards and record=True, once with
@@ -38,7 +42,10 @@ Phases (any failure exits non-zero before the result line):
               version on the same inputs (and their agreement there); the
               plain simple chunk runs 16 of the 256 steps; the chunk
               kernel's times are printed beside those of the layout it
-              replaced;
+              replaced; the act's entry point on a typed state is shown to
+              call no PyTorch operator but allocations (every operator is
+              recorded by a ``TorchDispatchMode``) and to launch
+              ``fsm_act_kernel`` once;
 7. env     -- the env layer.  Held, every ``EnvState`` field bit for bit
               between the card and the same call on CPU tensors (the plain
               versions), 1024 boards x 64 steps with resets, draws and wins:
@@ -58,7 +65,10 @@ Phases (any failure exits non-zero before the result line):
               ``observe_ego`` for all four agents on 64 steps, and 64 steps
               of ``PommermanEnv(batch_size=1024, fog="ego")`` through
               numpy; launch counts reset before and read after; then the
-              env kernels' device time against their plain versions;
+              env kernels' device time against their plain versions, the
+              merge's bytes per second (the bytes this run's done boards
+              need) beside the memory rate and beside one device-to-device
+              ``copy_`` of the same bytes;
 8. probes  -- the five probe kernels: every pattern in both layouts against
               its plain version, bit for bit, on seeded inputs at a small
               loop count (and with ``rows=32``, and on a ragged row count),
@@ -104,6 +114,16 @@ GAME_BYTES = 7 * 121 * 4 + 5 * 4 * 4 + 2 * 4 + 2 * 4
 ENV_BYTES = 1 + 4 + 1 + 3 * 8
 FSM_BYTES = 10 * 4 * 4                  # one board's ten FSM arrays
 MOVE_BYTES = 4 * 4
+# What one act reads and writes for a board: the planes board, bomb timer
+# and bomb strength, agent x, y, bomb count, max bombs and the dead bytes,
+# the FSM state in and out, the rands and the moves.
+ACT_BYTES = 3 * 121 * 4 + 4 * 4 * 4 + 4 + 2 * FSM_BYTES + 2 * MOVE_BYTES
+# What env_merge_kernel moves for a board, its stepped game written in place:
+# a running board reads its EnvState, dead bytes, alive_count and timestep
+# and writes its EnvState; a done board reads its done byte and key and
+# writes a fresh game and its EnvState.
+MERGE_RUNNING_BYTES = 2 * ENV_BYTES + 4 + 4 + 4
+MERGE_DONE_BYTES = 1 + 3 * 8 + GAME_BYTES + ENV_BYTES
 PLAIN_SIMPLE_STEPS = 16   # steps of the plain simple chunk in the timing
 ENV_HELD_BOARDS, ENV_HELD_STEPS = 1024, 64
 ENV_STEPS = 256           # fused and mixed-control env steps at full width
@@ -118,6 +138,10 @@ CTA_LAYOUT_MS = {"harmless": 52.25, "random": 78.629, "simple": 130.949}
 # boards, and the one-step kernel of one board per CTA.
 ENV_STEP_MS_BEFORE = {"fused": 4.163, "fsm": 4.339}
 STEP_KERNEL_MS_BEFORE = 0.253
+# Before their redesign (PERF.md, same card): device ms of the act kernel of
+# one board per CTA and of the merge on the lane layout, at 16384 boards.
+ACT_KERNEL_MS_BEFORE = 0.156
+MERGE_KERNEL_MS_BEFORE = 0.0955
 
 
 def log(msg: str) -> None:
@@ -297,10 +321,11 @@ KERNEL_ENTRIES = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
                   ("probe_reduce_", "probe_reduce_kernel"),
                   ("probe_dot_tc_kernel", "probe_dot_tc_kernel"),
                   ("probe_dot_kernel", "probe_dot_kernel"))
-# The warp-layout kernels, by their index in pomcpp_ctas_per_sm.
+# The kernels of fused_step.cu (one board per warp), by their index in
+# pomcpp_ctas_per_sm.
 WARP_LAYOUT_KERNELS = ("rollout_chunk_kernel", "rollout_chunk_simple_kernel",
                        "fused_step_kernel", "fused_env_step_kernel",
-                       "env_merge_kernel")
+                       "env_merge_kernel", "fsm_act_kernel")
 
 
 def kernel_resources(build_log: str) -> dict:
@@ -453,6 +478,15 @@ def phase_fsm(dev):
     cs = close_quarters(random_cell_state(1024, generator=gen), gen)
     dead = torch.rand((1024, 4), generator=gen, device=dev) < 0.4
     run("dead agents", kill(cs, dead), 30)
+    # Bombs in range (danger map, flee path) and rings with dead agents.
+    run("kick-heavy state", copies(kick_heavy_state(dev), 6 ** 4), 2)
+    for gone in ((), (0,), (2,)):
+        run(f"2x2 ring dead={gone}", copies(ring_state(dev, gone), 6 ** 4), 2)
+    # Ragged and tiny batches: the last CTA of four warps partly or mostly
+    # without a board.
+    for b in (1021, 5, 3, 1):
+        run(f"ragged {b}", close_quarters(random_cell_state(b, generator=gen),
+                                          gen), 6)
 
 
 def phase_chunk(dev):
@@ -656,8 +690,9 @@ def phase_main(dev):
     res["act_ms"] = [t.ms() for t in act_times]
     res["launches"] = dict(_ext.LAUNCHES)
     log(f"[main] fsm_act + fused_step: {BOARDS} boards x {MAIN_STEPS} steps, "
-        f"act kernel ms {[round(t, 3) for t in res['act_ms']]}, "
-        f"step kernel ms {[round(t, 3) for t in res['step_ms']]}")
+        f"CUDA events around each call: act ms "
+        f"{[round(t, 3) for t in res['act_ms']]}, step ms "
+        f"{[round(t, 3) for t in res['step_ms']]}")
     log(f"[main] launches: {res['launches']}")
     expect_launched(res["launches"], ENGINE_KERNELS, "the main path")
     return res, inputs
@@ -667,6 +702,7 @@ def phase_timing(inputs):
     """Each kernel and its plain version on the main path's inputs."""
     import torch
 
+    from pomcpp_tpu_torch import _ext
     from pomcpp_tpu_torch.engine.fsm import fsm_act, fsm_act_plain
     from pomcpp_tpu_torch.engine.fused_step import (
         fused_step,
@@ -715,16 +751,24 @@ def phase_timing(inputs):
         f"{BOARDS} x {n}")
 
     cs, fsm, rand = inputs["fsm"]
-    fsm_act(cs, fsm, rand)
+    before = dict(_ext.LAUNCHES)
+    ops = device_ops(lambda: fsm_act(cs, fsm, rand))
+    launched = launches_per_call(before, 1)
+    if ops or launched != {"fsm_act_kernel": 1.0}:
+        raise AssertionError(f"fsm_act ran {ops} and launched {launched}")
     with Timer() as tk:
         for _ in range(reps):
             k = fsm_act(cs, fsm, rand)
     with Timer() as tp:
         p = fsm_act_plain(cs, fsm, rand)
-    out["fsm"] = (tk.ms() / reps, tp.ms(),
+    kernel_ms = device_ms(lambda: fsm_act(cs, fsm, rand), reps)
+    out["fsm"] = (kernel_ms, tp.ms(),
                   expect_fsm_equal("main fsm_act", (k[0],) + k[1],
-                                   (p[0],) + p[1]))
-    log(f"[timing] fsm_act {BOARDS}: kernel {tk.ms() / reps:.3f} ms, "
+                                   (p[0],) + p[1]), tk.ms() / reps)
+    log(f"[timing] fsm_act {BOARDS}: kernel {kernel_ms:.4f} ms (device; "
+        f"{ACT_KERNEL_MS_BEFORE} ms one board per CTA), entry point "
+        f"{tk.ms() / reps:.3f} ms (no PyTorch operator but allocations, "
+        f"one launch of fsm_act_kernel), "
         f"plain {tp.ms():.3f} ms, kernel == plain")
     torch.cuda.synchronize()
     return out
@@ -974,6 +1018,32 @@ def device_ms(fn, reps: int = 20) -> float:
     return t.ms() / reps
 
 
+# Operators that only allocate or view: they launch nothing on the device.
+NO_DEVICE_WORK = ("aten.empty", "aten.view", "aten.alias", "aten.detach",
+                  "aten.as_strided")
+
+
+def device_ops(fn) -> list:
+    """The PyTorch operators that one call of ``fn`` dispatches, apart from
+    those of ``NO_DEVICE_WORK``: a ``TorchDispatchMode`` sees every
+    operator, so every kernel or copy that PyTorch launches shows here."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not str(func).startswith(NO_DEVICE_WORK):
+                self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record() as rec:
+        fn()
+    return rec.ops
+
+
 def env_max_abs_err(a, b) -> int:
     """Largest absolute difference over every EnvState field (``b`` may
     live on another device)."""
@@ -1103,17 +1173,40 @@ def phase_env_timing(es):
     expect_env_equal("env step at full width", card, plain)
     out["env_step"] = (device_ms(lambda: env.env_step_auto_reset_batch(
         es, mv, fused=True, **kw)), tp.ms(), env_max_abs_err(card, plain))
-    card = env._env_launch_cuda(es, fresh=None, game=game, **kw)
+    # The merge writes its stepped game in place: it gets a copy, which every
+    # timed call writes again with the same fresh games.
+    mine = type(game)(*(t.clone() for t in game))
+    card = env._env_launch_cuda(es, fresh=None, game=mine, **kw)
     with Timer() as tp:
         plain = env._merge_done_and_reset(es, game, fresh=None, **kw)
     expect_env_equal("env merge at full width", card, plain)
     out["env_merge"] = (device_ms(lambda: env._env_launch_cuda(
-        es, fresh=None, game=game, **kw)), tp.ms(),
+        es, fresh=None, game=mine, **kw)), tp.ms(),
         env_max_abs_err(card, plain))
+    done = int(es.done.sum())
     for name, (ms, plain_ms, _) in out.items():
-        log(f"[timing] {name} {BOARDS} boards ({int(es.done.sum())} done): "
+        log(f"[timing] {name} {BOARDS} boards ({done} done): "
             f"kernel {ms:.4f} ms (device), plain {plain_ms:.3f} ms, "
             f"kernel == plain")
+    # The bytes the merge needs on this run's done boards, read and written:
+    # its rate beside the memory's, and beside one device-to-device copy_
+    # that reads and writes as many bytes, a reference that no path calls.
+    moved = (BOARDS - done) * MERGE_RUNNING_BYTES + done * MERGE_DONE_BYTES
+    src = torch.empty(moved // 2, dtype=torch.uint8, device=es.done.device)
+    dst = torch.empty_like(src)
+    copy_ms = device_ms(lambda: dst.copy_(src))
+    merge_ms = out["env_merge"][0]
+    out["merge_rate"] = dict(done_boards=done, bytes=moved,
+                             bytes_per_s=moved / merge_ms * 1e3,
+                             copy_ms=copy_ms,
+                             copy_bytes_per_s=2 * src.numel() / copy_ms * 1e3)
+    log(f"[timing] env_merge {BOARDS} boards ({done} done): {merge_ms:.4f} ms "
+        f"(device; {MERGE_KERNEL_MS_BEFORE} ms on the lane layout, every "
+        f"board copied), {moved} bytes read and written, "
+        f"{out['merge_rate']['bytes_per_s'] / 1e12:.3f} TB/s of "
+        f"{HBM_BYTES_PER_S / 1e12:.2f}; copy_ of {src.numel()} bytes "
+        f"{copy_ms:.4f} ms, {out['merge_rate']['copy_bytes_per_s'] / 1e12:.3f} "
+        f"TB/s")
     return out
 
 
@@ -1136,6 +1229,9 @@ def profile_env(es, fsm) -> None:
         # time of the kernels it launched.
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events:
+            raise RuntimeError(f"torch.profiler recorded no device activity "
+                               f"over 32 {what} env steps")
         total = sum(e.device_time_total for e in events)
         launches = sum(e.count for e in events)
         log(f"[profile] 32 {what} env steps: {sec / 32 * 1e3:.3f} ms per step "
@@ -1413,11 +1509,10 @@ def main() -> int:
         BOARDS, BOARDS * (2 * GAME_BYTES + MOVE_BYTES))
     env_bound, env_by = bound_ms(
         BOARDS, BOARDS * (2 * (GAME_BYTES + ENV_BYTES) + MOVE_BYTES))
-    merge_bound, merge_by = bound_ms(BOARDS, BOARDS * 2 * (GAME_BYTES + ENV_BYTES))
+    merge_bound, merge_by = bound_ms(BOARDS, env_timing["merge_rate"]["bytes"])
     simple_bound, simple_by = bound_ms(
         BOARDS * CHUNK, BOARDS * 2 * (STATE_BYTES + FSM_BYTES))
-    act_bound, act_by = bound_ms(
-        BOARDS, BOARDS * (STATE_BYTES + 2 * FSM_BYTES + 2 * MOVE_BYTES))
+    act_bound, act_by = bound_ms(BOARDS, BOARDS * ACT_BYTES)
     kernels = [
         {
             "name": "rollout_chunk_kernel", "route": "cuda",
@@ -1470,6 +1565,7 @@ def main() -> int:
             **launches("env_merge_kernel"),
             "max_abs_err": env_timing["env_merge"][2],
             "ms": env_timing["env_merge"][0],
+            **env_timing["merge_rate"],
             "entry_ms": env_res["fsm_ms"],
             "plain_ms": env_timing["env_merge"][1],
             "bound_ms": merge_bound, "bound_by": merge_by,
@@ -1494,11 +1590,12 @@ def main() -> int:
         },
         {
             "name": "fsm_act_kernel", "route": "cuda",
-            "source": "pomcpp_tpu_torch/csrc/fsm_block.cuh",
+            "source": "pomcpp_tpu_torch/csrc/fsm_warp.cuh",
             "replaces": "pomcpp_tpu/engine/pallas_fsm.py:357",
             **launches("fsm_act_kernel"),
             "max_abs_err": timing["fsm"][2],
             "ms": timing["fsm"][0],
+            "entry_ms": timing["fsm"][3],
             "plain_ms": timing["fsm"][1],
             "bound_ms": act_bound, "bound_by": act_by,
             "library_ms": None,

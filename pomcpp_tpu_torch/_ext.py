@@ -27,9 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 # One shared library per source file, so that they build side by side.
 LIBRARIES = {
-    "kernels": ("fused_step.cu", ("step_block.cuh", "fsm_block.cuh",
-                                  "step_warp.cuh", "fsm_warp.cuh",
-                                  "env_warp.cuh")),
+    "kernels": ("fused_step.cu", ("common.cuh", "step_warp.cuh",
+                                  "fsm_warp.cuh", "env_warp.cuh")),
     "probes": ("probes.cu", ()),
 }
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ext"
@@ -149,7 +148,7 @@ def bind_kernels(handle: ctypes.CDLL) -> ctypes.CDLL:
     handle.pomcpp_fused_step.restype = i
     handle.pomcpp_env_step.argtypes = [g, e, g, e, g, p, i, i, i, i, p]
     handle.pomcpp_env_step.restype = i
-    handle.pomcpp_env_merge.argtypes = [g, e, g, e, g, i, i, i, i, p]
+    handle.pomcpp_env_merge.argtypes = [g, e, e, g, i, i, i, i, p]
     handle.pomcpp_env_merge.restype = i
     handle.pomcpp_rollout_chunk.argtypes = [
         StateView, StateView, i, i, i, u, u, p, p, p, i, p, p, p,
@@ -160,8 +159,7 @@ def bind_kernels(handle: ctypes.CDLL) -> ctypes.CDLL:
         i, p, p, p,
     ]
     handle.pomcpp_rollout_chunk_simple.restype = i
-    handle.pomcpp_fsm_act.argtypes = [StateView, FsmView, FsmView, p, p,
-                                      i, p]
+    handle.pomcpp_fsm_act.argtypes = [g, FsmView, FsmView, p, p, i, p]
     handle.pomcpp_fsm_act.restype = i
     handle.pomcpp_chunk_warps.argtypes = []
     handle.pomcpp_chunk_warps.restype = i

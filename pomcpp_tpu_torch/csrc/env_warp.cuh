@@ -2,7 +2,8 @@
 // fused_step_kernel<true> and env_merge_kernel (fused_step.cu).
 //
 // Replaces the done latch and auto-reset merge that follows `pallas_step` in
-// the JAX package's fused env step (`_merge_done_and_reset` and
+// the JAX package's fused env step, and that follows the one-step simple
+// `pallas_rollout_chunk` in its mixed-control step (`_merge_done_and_reset` and
 // `_detect_terminal`, pomcpp_tpu/env/environment.py:197-222, :115-150,
 // `_fresh`); there XLA fuses it around the one Pallas launch.  The semantic
 // spec is the plain PyTorch version, pomcpp_tpu_torch/env/environment.py
@@ -26,9 +27,18 @@
 // one byte, the key as int64, the counts as int32 -- so the wrapper converts
 // nothing and reads nothing back to the host.
 //
-// What bounds it on the card: bytes.  A board's EnvState is 3,474 bytes in
-// and as many out; the reset draw is 2 Philox calls a lane (3 with
-// randomize_positions) on the few boards that reset.
+// What bounds it on the card: bytes.  In fused_step_kernel<true> a board's
+// EnvState is 3,514 bytes in and as many out (3,484 of game, 30 of done,
+// winner, is_draw and key); the reset draw is 2 Philox calls a lane (3 with
+// randomize_positions) on the few boards that reset.  There the game goes
+// through the lane layout (load_game / store_game) because the step needs
+// it: lane l moves cells 4l..4l+3 with 4-byte accesses, so one warp
+// instruction spans 512 bytes at a 16-byte stride, 16 sectors for 128 useful
+// bytes.  env_merge_kernel does not step and writes the stepped batch in
+// place, so a board that was not done moves no game at all: the latch reads
+// its four dead bytes and two counts, and 72 bytes a board are all it
+// needs.  Only the rare reset writes a game, in the lane layout, as the
+// Philox draw gives lane l the words of cells 4l..4l+3.
 #pragma once
 
 #include <cstdint>
@@ -230,25 +240,25 @@ __device__ __forceinline__ void env_reset_board(int b, const Geo& g, const GameV
   }
 }
 
-// _detect_terminal for a board that was not done before the step; `A`,
+// _detect_terminal for a board that was not done before the step; `dead`,
 // `alive` and `timestep` are the stepped game's.  Writes board b of `eout`.
-__device__ __forceinline__ void env_latch(int b, const Geo& g, const Agents& A, int alive,
+__device__ __forceinline__ void env_latch(int b, int lane, const int dead[NA], int alive,
                                           int timestep, const EnvView& ein, const EnvView& eout,
                                           const EnvConfig& cfg) {
-  if (g.lane < 3) eout.key[3 * b + g.lane] = ein.key[3 * b + g.lane];
-  if (g.lane != 0) return;
+  if (lane < 3) eout.key[3 * b + lane] = ein.key[3 * b + lane];
+  if (lane != 0) return;
   bool won, draw;
   int survivor;
   if (cfg.team_mode) {
     // Classic 2v2 teams: agents {0, 2} against {1, 3}.
-    const bool t0 = !A.dead[0] || !A.dead[2], t1 = !A.dead[1] || !A.dead[3];
+    const bool t0 = !dead[0] || !dead[2], t1 = !dead[1] || !dead[3];
     won = t0 != t1;
     survivor = t0 ? 0 : 1;
     draw = !t0 && !t1;
   } else {
     won = alive == 1;
     // argmax(~dead): the lowest alive id, 0 when nobody is alive.
-    survivor = !A.dead[0] ? 0 : !A.dead[1] ? 1 : !A.dead[2] ? 2 : !A.dead[3] ? 3 : 0;
+    survivor = !dead[0] ? 0 : !dead[1] ? 1 : !dead[2] ? 2 : !dead[3] ? 3 : 0;
     draw = alive == 0;
   }
   if (cfg.max_steps != 0) draw = draw || (!won && timestep >= cfg.max_steps);

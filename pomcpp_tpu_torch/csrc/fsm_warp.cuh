@@ -1,30 +1,33 @@
 // One SimpleAgent act for all four agents of one board held by ONE WARP, as
-// device code of rollout_chunk_kernel<true> (fused_step.cu).
+// device code of rollout_chunk_kernel<true> (every step of a chunk) and of
+// fsm_act_kernel (one act for B boards), both in fused_step.cu.
 //
 // Replaces `fsm_block` (pomcpp_tpu/engine/pallas_fsm.py:357) and the helpers
-// it inlines, `danger_map_tile` (:115) and the 4-agent BFS `swar_bfs` (:146),
-// as fsm_block.cuh does for the one-act kernel.  The semantic spec is the
-// plain PyTorch version, pomcpp_tpu_torch/engine/fsm.py `fsm_act_plain`; the
-// code below must agree with it bit for bit.  fsm_block.cuh supplies the
-// constants, `FsmView` and the per-agent decision `agent_decide`, which this
-// file calls on a view of the warp's own shared-memory slice.
+// it inlines, `danger_map_tile` (:115) and the 4-agent BFS `swar_bfs` (:146).
+// The semantic spec is the plain PyTorch version,
+// pomcpp_tpu_torch/engine/fsm.py `fsm_act_plain` (the toolkit FSM of
+// agents/simple_cellular.py with dead agents' BFS sources pruned); the code
+// below must agree with it bit for bit.  This file also holds the FSM state
+// (`FsmView` in device memory, the warp's `FsmSlice` in shared memory) and
+// the per-agent decision `agent_decide`; common.cuh supplies the constants.
 //
-// What bounded the CTA layout on this card: one CTA barrier per BFS round
-// (20-50 rounds an act), five more around the maps, and a danger map that
-// scanned 22 cells of shared memory per cell whether or not the board held a
-// bomb.  What this layout does about it (lane l holds cells 4l..4l+3, see
-// step_warp.cuh):
+// What bounded the layout this replaced (one board per 128-thread CTA, one
+// cell per thread) on this card: one CTA barrier per BFS round (20-50 rounds
+// an act), five more around the maps, and a danger map that scanned 22 cells
+// of shared memory per cell whether or not the board held a bomb.  What this
+// layout does about it (lane l holds cells 4l..4l+3, see step_warp.cuh):
 //   1. Danger map: not a scan from every cell but a warp-uniform loop over
 //      the board's bombs (the set bits of a ballot plane); each bomb's timer
 //      and strength arrive in one shuffle and every lane tests its four
 //      cells against the bomb's cross.  A board without bombs costs four
 //      ballots.
-//   2. BFS: the 12-bit field of a cell stays in a register, two cells to a
-//      word, so that a lane's four cells merge in two SWAR operations.  A
-//      round fetches the four parents' round-start fields with 8 shuffles
+//   2. BFS: the 12-bit field of a cell (per agent i, bits [3i, 3i+3) =
+//      visited | root rank << 1) stays in a register, two cells to a word, so
+//      that a lane's four cells merge in two SWAR operations.  A round
+//      fetches the four parents' round-start fields with 8 shuffles
 //      (pair_neighbors) in the order DOWN, UP, RIGHT, LEFT, first writer
-//      wins, and ends with one __any_sync; the double buffer in shared
-//      memory is gone.  A cell sends its field only if it is walkable (the
+//      wins, and ends with one __any_sync; no double buffer in shared
+//      memory.  A cell sends its field only if it is walkable (the
 //      parent-side mask of the spec, applied at the sender); the receiver's
 //      mask joins "enterable" and "has that neighbour", one word per
 //      direction and cell pair.  The sources' seeds act in the first
@@ -34,13 +37,13 @@
 //      no seed.
 //   3. Flee target: one __reduce_min_sync per agent in danger over each
 //      lane's first window cell; no per-warp table.
-//   4. Dynamic-index reads: the decision cascade runs on lanes 0-3, one
-//      agent each, and reads the BFS field, the board code and the danger
-//      value at cells only that lane knows.  The three planes are written to
-//      the warp's shared-memory slice (a __syncwarp() after the writes and
-//      one before the slice is overwritten) and read by index there.  The
-//      FSM state lives in the same slice for the whole chunk, touched only
-//      by its agent's lane.
+//   4. Dynamic-index reads: the decision cascade (agent_decide) runs on lanes
+//      0-3, one agent each, and reads the BFS field, the board code and the
+//      danger value at cells only that lane knows.  The three planes are
+//      written to the warp's shared-memory slice (a __syncwarp() after the
+//      writes and one before the slice is overwritten) and read by index
+//      there.  The FSM state lives in the same slice (for a whole chunk, in
+//      the chunk kernel), touched only by its agent's lane.
 // Every *_sync intrinsic sits in warp-uniform control flow; the cascade on
 // lanes 0-3 contains none.
 //
@@ -51,21 +54,218 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "fsm_block.cuh"
 #include "step_warp.cuh"
 
 namespace pomcpp {
+
+constexpr int RP_STALE = 14;          // ring code of (0, 0)
+constexpr int NO_CELL = NT;           // above every cell index
+constexpr int DANGER_NONE = 1 << 30;
+constexpr int VIS3 = 0x249;           // bit 3i: visited by agent i
+constexpr int M_IDLE = 0, M_UP = 1, M_DOWN = 2, M_LEFT = 3, M_RIGHT = 4;
+
+struct FsmView {
+  int32_t* f[10];  // ring slots x4, ring head, ring count, moveQueue slots x4: [B, 4]
+};
+
 namespace wl {
 
-// A warp's FSM slice, aligned for the 16-byte stores of the maps.  It is the
-// CTA layout's FsmShared because `agent_decide` (fsm_block.cuh, shared with
-// the one-act kernel) takes one.  This layout uses field[0] only, row 0 of
-// `first` (fsm_slice_init pins rows 1-3 to NO_CELL for agent_decide's
-// minimum over four rows) and not `mv`: 576 of a slice's 2,272 bytes are
-// unused, which does not limit residency (the registers do).
-// The slice gets a struct of its own when the one-act kernel moves to this
-// body and fsm_block.cuh goes.
-struct alignas(16) FsmSlice : FsmShared {};
+// A warp's FSM slice of shared memory, aligned for the 16-byte stores of
+// the maps: 1,696 bytes.
+struct alignas(16) FsmSlice {
+  int dmap[NT];   // danger map, 0 where no bomb covers the cell
+  int board[NT];  // board codes (pad cells: C_RIGID)
+  int field[NT];  // BFS fields
+  int first[NA];  // per agent: first flee cell, or NO_CELL
+  int rp[NA][4];  // ring codes per agent, logical order (slot 0 oldest)
+  int rpc[NA];    // ring count
+  int mq[NA][4];  // moveQueue slots
+};
+
+__device__ __forceinline__ bool is_walkable(int v) { return v == C_PASSAGE || is_powerup(v); }
+__device__ __forceinline__ bool safe_for(int danger, int min_time) {
+  return danger == 0 || danger >= min_time;
+}
+__device__ __forceinline__ int enc_pos(int x, int y) { return (x + 1) + 13 * (y + 1); }
+__device__ __forceinline__ int floor_mod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+// BFS root rank -> move, in the priority order DOWN, UP, RIGHT, LEFT.
+__device__ __forceinline__ int rank_move(int r) {
+  return r == 0 ? M_DOWN : r == 1 ? M_UP : r == 2 ? M_RIGHT : M_LEFT;
+}
+
+// Lane i < NA loads, stores or resets agent i's FSM state.  The ring head
+// (f[4]) is always 0 in this layout: the slice keeps the ring in logical
+// order.
+__device__ __forceinline__ void fsm_load(const FsmView& in, int b, int lane, FsmSlice& fs) {
+  if (lane < NA) {
+    const int o = b * NA + lane;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      fs.rp[lane][j] = in.f[j][o];
+      fs.mq[lane][j] = in.f[6 + j][o];
+    }
+    fs.rpc[lane] = in.f[5][o];
+  }
+}
+
+__device__ __forceinline__ void fsm_store(const FsmView& out, int b, int lane, const FsmSlice& fs) {
+  if (lane < NA) {
+    const int o = b * NA + lane;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      out.f[j][o] = fs.rp[lane][j];
+      out.f[6 + j][o] = fs.mq[lane][j];
+    }
+    out.f[4][o] = 0;
+    out.f[5][o] = fs.rpc[lane];
+  }
+}
+
+// A board's reset: ring slots stale, count and moveQueue slots 0.
+__device__ __forceinline__ void fsm_reset(int lane, FsmSlice& fs) {
+  if (lane < NA) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      fs.rp[lane][j] = RP_STALE;
+      fs.mq[lane][j] = 0;
+    }
+    fs.rpc[lane] = 0;
+  }
+}
+
+// The decision of agent i (run by lane i): reads the maps in `fs`, updates
+// the agent's FSM state there and returns its move.  `fc` is the agent's
+// flee cell (the first safe cell of its window), or NO_CELL.
+__device__ int agent_decide(int i, const Agents& A, int rnd, int fc, FsmSlice& fs) {
+  const int x = pick4(A.x, i), y = pick4(A.y, i), me = x + BS * y, sh3 = 3 * i;
+  const bool in_danger = fs.dmap[me] > 0;
+
+  // Path A: flee toward the first safe window cell.
+  int m_safe = M_IDLE;
+  if (fc != NO_CELL) {
+    const int fv = (fs.field[fc] >> sh3) & 7;
+    if (fv & 1) m_safe = rank_move(fv >> 1);
+  }
+  // Enemy target: first live agent (id order) within manhattan 7 not on my cell.
+  int ecell = -1;
+  bool adj1 = false, adj7 = false;
+#pragma unroll
+  for (int j = NA - 1; j >= 0; --j) {
+    const int mh = abs(A.x[j] - x) + abs(A.y[j] - y);
+    if (!A.dead[j] && mh > 0 && mh <= 7) ecell = A.x[j] + BS * A.y[j];
+    if (j != i && !A.dead[j]) {
+      adj1 |= mh <= 1;
+      adj7 |= mh <= 7;
+    }
+  }
+  int m_enemy = M_IDLE;
+  if (ecell >= 0) {
+    const int ev = (fs.field[ecell] >> sh3) & 7;
+    if (ev & 1) m_enemy = rank_move(ev >> 1);
+  }
+
+  // Neighbours in SafeDirections order RIGHT, LEFT, DOWN, UP.
+  const int dirs[4] = {M_RIGHT, M_LEFT, M_DOWN, M_UP};
+  bool a_ok = false, b3_ok = false, wood_adj = fs.board[me] == C_WOOD;
+  int cnt = 0, newq = 0;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int n = neighbor(me, dirs[s]);
+    if (n < 0) continue;
+    const int v = fs.board[n], d = fs.dmap[n];
+    wood_adj |= v == C_WOOD;
+    if (!is_walkable(v)) continue;
+    const bool ok2 = safe_for(d, 2), ok5 = safe_for(d, 5);
+    a_ok |= m_safe == dirs[s] && ok2;
+    b3_ok |= m_enemy == dirs[s] && ok5;
+    if (ok2) {
+      newq |= dirs[s] << (4 * cnt);
+      ++cnt;
+    }
+  }
+  a_ok = in_danger && a_ok;
+  const bool a_else = in_danger && !a_ok;
+
+  // moveQueue: the safe moves over the persistent slots, each nibble
+  // (value | visited << 3); visited = its desired position is in the ring.
+  const int rpc = fs.rpc[i];
+  int q = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int v = r < cnt ? (newq >> (4 * r)) & 15 : fs.mq[i][r];
+    const int vv = v < 0 ? 0 : v > 5 ? 5 : v;
+    const int enc = enc_pos(x + move_dx(vv), y + move_dy(vv));
+    bool vis = false;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) vis |= j < rpc && fs.rp[i][j] == enc;
+    q |= ((v & 7) | (vis << 3)) << (4 * r);
+  }
+  // SortDirections: the RemoveAt+AddElem aliasing walk, 8 applications.
+  {
+    const int cm1 = min(max(cnt - 1, 0), 4);
+    const int up_mask = (1 << (4 * cm1)) - 1;  // nibbles below count-1
+    const int sh_c = 4 * min(max(cnt - 1, 0), 3);
+    const int app_clear = ~(15 << sh_c);
+    int it = 0, removes = 0;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const bool active = it < cnt && removes < 4;
+      const int sh_i = 4 * min(it, 7);
+      const bool act = active && ((q >> sh_i) & 15) >= 8;
+      const int win = up_mask & ~((1 << sh_i) - 1);  // nibbles [it, count-1)
+      const int shifted = (q & ~win) | ((q >> 4) & win);
+      const int val = (shifted >> sh_i) & 15;
+      if (act) {
+        q = (shifted & app_clear) | (val << sh_c);
+        --it;
+      }
+      ++it;
+      removes += act;
+    }
+  }
+  const int m_queue = cnt == 0 ? M_IDLE : floor_mod(rnd, 2) == 1 ? (q >> 4) & 7 : q & 7;
+
+  // Path B: aggression.
+  bool rp_loop = true;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    if (j < rpc / 2) rp_loop &= fs.rp[i][j] == fs.rp[i][j + 2];
+  const bool can_bomb = pick4(A.bc, i) < pick4(A.mb, i);
+  const bool calm = !in_danger;
+  const bool b1 = calm && can_bomb && adj1;
+  const bool b2 = calm && can_bomb && !b1 && adj7 && rp_loop;
+  const bool b3 = calm && can_bomb && !b1 && !b2 && adj7 && b3_ok;
+  const bool b4 = calm && can_bomb && !b1 && !b2 && !b3 && wood_adj;
+  const bool c_path = calm && !b1 && !b2 && !b3 && !b4;
+  const int move = a_ok ? m_safe
+                   : a_else ? m_queue
+                   : b1 ? M_BOMB
+                   : b2 ? floor_mod(rnd, 4)
+                   : b3 ? m_enemy
+                   : b4 ? M_BOMB
+                        : m_queue;
+
+  // The moveQueue persists only when the queue path ran.
+  if (a_else || c_path) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) fs.mq[i][k] = (q >> (4 * k)) & 7;
+  }
+  // recentPositions: push the desired position of this move.
+  const int enc = enc_pos(x + move_dx(move), y + move_dy(move));
+  if (rpc == 4) {
+    fs.rp[i][0] = fs.rp[i][1];
+    fs.rp[i][1] = fs.rp[i][2];
+    fs.rp[i][2] = fs.rp[i][3];
+    fs.rp[i][3] = enc;
+  } else {
+    fs.rp[i][rpc & 3] = enc;
+    fs.rpc[i] = rpc + 1;
+  }
+  return move;
+}
 
 // BFS fields travel and merge two cells to a word (SWAR): a lane's cells
 // (0, 1) in one word, (2, 3) in another, a cell's 12-bit field in each
@@ -226,11 +426,11 @@ __device__ void fsm_act(const Cells& s, const Agents& A, const int rnd[NA], FsmS
 
   // The maps, for the reads by computed index below: one 16-byte store a
   // plane (a slice is 16-byte aligned and each plane is 512 bytes).
-  static_assert(offsetof(FsmShared, dmap) % 16 == 0 && offsetof(FsmShared, board) % 16 == 0 &&
-                    offsetof(FsmShared, field) % 16 == 0,
+  static_assert(offsetof(FsmSlice, dmap) % 16 == 0 && offsetof(FsmSlice, board) % 16 == 0 &&
+                    offsetof(FsmSlice, field) % 16 == 0,
                 "the planes of an FSM slice must stay 16-byte aligned");
   __syncwarp();
-  *reinterpret_cast<int4*>(&fs.field[0][g.c0]) = make_int4(cur[0], cur[1], cur[2], cur[3]);
+  *reinterpret_cast<int4*>(&fs.field[g.c0]) = make_int4(cur[0], cur[1], cur[2], cur[3]);
   *reinterpret_cast<int4*>(&fs.board[g.c0]) =
       make_int4(s.board[0], g.c0 + 1 < NC ? s.board[1] : C_RIGID,
                 g.c0 + 2 < NC ? s.board[2] : C_RIGID, g.c0 + 3 < NC ? s.board[3] : C_RIGID);
@@ -259,27 +459,17 @@ __device__ void fsm_act(const Cells& s, const Agents& A, const int rnd[NA], FsmS
       }
       first = (int)__reduce_min_sync(FULL, (unsigned)local_first);
     }
-    fs.first[0][i] = first;
+    fs.first[i] = first;  // every lane stores the same value
   }
-  // (Every lane stores the same value; agent_decide takes the minimum over
-  // the four rows of `first`, so the other three hold NO_CELL for good.)
 
   // ---- 4. Decisions, one agent per lane ---------------------------------------
   __syncwarp();
   pc.mark(PH_FLEE);
   int move = 0;
-  if (g.lane < NA) move = agent_decide(g.lane, A, pick4(rnd, g.lane), fs.field[0], fs);
+  if (g.lane < NA) move = agent_decide(g.lane, A, pick4(rnd, g.lane), fs.first[g.lane], fs);
 #pragma unroll
   for (int i = 0; i < NA; ++i) mv[i] = __shfl_sync(FULL, move, i);
   pc.mark(PH_DECIDE);
-}
-
-// A fresh slice: rows 1-3 of the flee-target table are never written again.
-__device__ __forceinline__ void fsm_slice_init(FsmSlice& fs, const Geo& g) {
-  if (g.lane < NA) {
-#pragma unroll
-    for (int w = 1; w < NT / 32; ++w) fs.first[w][g.lane] = NO_CELL;
-  }
 }
 
 }  // namespace wl

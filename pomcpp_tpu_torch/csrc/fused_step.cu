@@ -8,10 +8,9 @@
 // epilogue (env_warp.cuh: done latch, terminal detection, the Philox reset
 // of finished boards) in one launch, on the EnvState in its own dtypes.
 // env_merge_kernel is that epilogue alone, after the mixed-control step's
-// one-step chunk.  fsm_act_kernel replaces one `fsm_block` act
-// (pomcpp_tpu/engine/pallas_fsm.py:357) for B boards; it still holds one
-// board per 128-thread CTA, one cell per thread (fsm_block.cuh), and is
-// bound by the latency of its CTA-wide barriers.
+// one-step chunk (see its note below).  fsm_act_kernel replaces one
+// `fsm_block` act (pomcpp_tpu/engine/pallas_fsm.py:357) for B boards: the
+// chunk kernel's SimpleAgent act (fsm_warp.cuh) without the loop.
 //
 // rollout_chunk_kernel replaces `_chunk_kernel` / `pallas_rollout_chunk`
 // (:840, :1069): a board's state is loaded once, `steps` steps run with
@@ -23,14 +22,15 @@
 // `inject_slots` override of mixed control), and the ten FSM arrays ride
 // along in shared memory.
 //
-// The step, env and chunk kernels hold ONE BOARD PER WARP (step_warp.cuh,
-// fsm_warp.cuh, env_warp.cuh): lane l keeps cells 4l..4l+3 of every plane in
-// registers, neighbours are read by shuffle, boolean planes by ballot, sums
-// by __reduce_*_sync, and nothing in them synchronises a CTA; a CTA is
+// Every kernel here holds ONE BOARD PER WARP (step_warp.cuh, fsm_warp.cuh,
+// env_warp.cuh): lane l keeps cells 4l..4l+3 of every plane in registers,
+// neighbours are read by shuffle, boolean planes by ballot, sums by
+// __reduce_*_sync, and nothing in them synchronises a CTA; a CTA is
 // CHUNK_WARPS independent boards and the grid is ceil(batch / CHUNK_WARPS).
-// In the CTA layout the chunk spent its time at 60-100 barriers a step (one
-// more per BFS round) with the per-agent code run by all four warps; see the
-// notes at the top of the headers for what each phase does instead.
+// The layout they replaced, one board per 128-thread CTA and one cell per
+// thread, spent its time at 60-100 CTA barriers a step (one more per BFS
+// round) with the per-agent code run by all four warps; see the notes at the
+// top of the headers for what each phase does instead.
 //
 // Bound on the card: a chunk moves 2 x 3,500 bytes per board through HBM
 // (plus the optional test-hook arrays), so at 16384 boards the byte bound
@@ -51,10 +51,9 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "common.cuh"
 #include "env_warp.cuh"
-#include "fsm_block.cuh"
 #include "fsm_warp.cuh"
-#include "step_block.cuh"
 #include "step_warp.cuh"
 
 // A kernel launch.  The tests' host build (csrc/host_emu/cuda_runtime.h)
@@ -88,26 +87,6 @@ constexpr uint32_t STREAM_MOVES = 0, STREAM_CELLS = 1, STREAM_FLAGS = 2;
 // v % n; the policies' move counts divide by a constant.
 __device__ __forceinline__ int draw_mod(int v, int n) {
   return n == 5 ? v % 5 : n == 6 ? v % 6 : v % n;
-}
-
-__device__ __forceinline__ void load_board(const StateView& in, int b, int c, Cell& s, Agents& A) {
-  if (c < NC) {
-    const int o = b * NC + c;
-    s = Cell{in.f[0][o], in.f[1][o], in.f[2][o], in.f[3][o], in.f[4][o], in.f[5][o], in.f[6][o]};
-  } else {
-    s = Cell{0, 0, 0, 0, 0, 0, 0};
-  }
-#pragma unroll
-  for (int i = 0; i < NA; ++i) {
-    const int o = b * NA + i;
-    A.x[i] = in.f[7][o];
-    A.y[i] = in.f[8][o];
-    A.bc[i] = in.f[9][o];
-    A.mb[i] = in.f[10][o];
-    A.st[i] = in.f[11][o];
-    A.kick[i] = in.f[12][o];
-    A.dead[i] = in.f[13][o];
-  }
 }
 
 // Board finished: at most one agent alive.
@@ -146,28 +125,41 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) fused_step_k
   wl::step_board(s, A, mv, ws_all[warp], g, pc);
   const int alive = wl::alive_of(A), timestep = in.timestep[b] + (kEnv ? 1 : 0);
   wl::store_game(out, b, g, s, A, alive, timestep);
-  if constexpr (kEnv) wl::env_latch(b, g, A, alive, timestep, ein, eout, cfg);
+  if constexpr (kEnv) wl::env_latch(b, g.lane, A.dead, alive, timestep, ein, eout, cfg);
 }
 
 // The env epilogue alone, on a batch that another launch stepped (the
 // mixed-control env step's one-step chunk; its timestep is already
-// advanced): done boards reset, the others keep `stepped` and latch.
+// advanced), written IN PLACE into that batch: a done board gets its fresh
+// game, the others keep their stepped game untouched and latch.  Replaces
+// `_merge_done_and_reset` after the one-step simple chunk of the JAX
+// package's mixed-control step (pomcpp_tpu/env/environment.py:197-222,
+// :115-150).  Bound by bytes, and only by those the data needs: a running
+// board reads its EnvState, four dead bytes, alive_count and timestep and
+// writes its EnvState (72 bytes); a done board (rare; a warp-uniform branch)
+// reads its key and writes a whole game and EnvState (3,539 bytes) in the
+// lane layout of the Philox reset.  The dead flags the latch needs come
+// from one ballot of lanes 0-3.  Measured on an H100 80GB HBM3 at 700 W,
+// 16384 boards of which 616 done: 0.0094 ms, where a copy of every board's
+// game as rows took 0.0459 ms and the lane layout's loads and stores (a
+// 16-byte stride, 16 sectors for 128 useful bytes) 0.0955 ms (PERF.md row
+// 2e).
 __global__ void __launch_bounds__(CHUNK_WARPS * 32) env_merge_kernel(
-    GameView stepped, GameView out, EnvView ein, EnvView eout, GameView fresh, EnvConfig cfg,
-    int batch) {
+    GameView game, EnvView ein, EnvView eout, GameView fresh, EnvConfig cfg, int batch) {
   const int b = blockIdx.x * CHUNK_WARPS + (threadIdx.x >> 5);
   if (b >= batch) return;
   const wl::Geo g = wl::make_geo();
-  wl::Cells s;
-  Agents A;
   if (__any_sync(wl::FULL, ein.done[b] != 0)) {
-    wl::env_reset_board(b, g, fresh, ein, out, eout, cfg.randomize_positions != 0, s, A);
+    wl::Cells s;
+    Agents A;
+    wl::env_reset_board(b, g, fresh, ein, game, eout, cfg.randomize_positions != 0, s, A);
     return;
   }
-  wl::load_game(stepped, b, g, s, A);
-  const int alive = stepped.alive_count[b], timestep = stepped.timestep[b];
-  wl::store_game(out, b, g, s, A, alive, timestep);
-  wl::env_latch(b, g, A, alive, timestep, ein, eout, cfg);
+  const unsigned dead_bits =
+      __ballot_sync(wl::FULL, g.lane < NA && game.flag[1][b * NA + g.lane] != 0);
+  const int dead[NA] = {(int)(dead_bits & 1u), (int)((dead_bits >> 1) & 1u),
+                        (int)((dead_bits >> 2) & 1u), (int)((dead_bits >> 3) & 1u)};
+  wl::env_latch(b, g.lane, dead, game.alive_count[b], game.timestep[b], ein, eout, cfg);
 }
 
 // Warp-layout loads and stores: lane l moves cells 4l..4l+3 of its warp's
@@ -252,8 +244,7 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) rollout_chun
   Agents A;
   load_board(in, b, g, s, A);
   if constexpr (kSimple) {
-    fsm_load(fin, b, g.lane, fs);
-    wl::fsm_slice_init(fs, g);
+    wl::fsm_load(fin, b, g.lane, fs);
   }
 
   // This board's replacement terrain, drawn once per chunk (_fresh_boards):
@@ -338,7 +329,7 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) rollout_chun
       // which otherwise turns the rare merge into 56 selects a step.
       if (__any_sync(wl::FULL, done)) {
         merge_fresh();
-        if constexpr (kSimple) fsm_reset(g.lane, fs);
+        if constexpr (kSimple) wl::fsm_reset(g.lane, fs);
       }
       done_next = finished(A);
     }
@@ -364,10 +355,10 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) rollout_chun
   // Catch-up merge: boards that finished in the last two steps.
   if (auto_reset && finished(A)) {
     merge_fresh();
-    if constexpr (kSimple) fsm_reset(g.lane, fs);
+    if constexpr (kSimple) wl::fsm_reset(g.lane, fs);
   }
   store_board(out, b, g, s, A);
-  if constexpr (kSimple) fsm_store(fout, b, g.lane, fs);
+  if constexpr (kSimple) wl::fsm_store(fout, b, g.lane, fs);
 #ifdef POMCPP_PHASE_CLOCKS
   if (g.lane == 0) {
 #pragma unroll
@@ -376,21 +367,31 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) rollout_chun
 #endif
 }
 
-__global__ void __launch_bounds__(NT) fsm_act_kernel(StateView in, FsmView fin, FsmView fout,
-                                                     const int32_t* __restrict__ rands,
-                                                     int32_t* __restrict__ moves) {
-  __shared__ FsmShared fs;
-  const int b = blockIdx.x, c = threadIdx.x;
-  Cell s;
+// One SimpleAgent act for board k * CHUNK_WARPS + w in warp w of CTA k: the
+// simple chunk kernel's act (wl::fsm_act on the warp's own FSM slice)
+// without its loop, on the CellState in its own dtypes.  Bound by latency
+// (the BFS rounds' exchanges and the cascade on four lanes), not by its
+// 3,836 bytes a board: see fsm_warp.cuh.
+__global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) fsm_act_kernel(
+    GameView in, FsmView fin, FsmView fout, const int32_t* __restrict__ rands,
+    int32_t* __restrict__ moves, int batch) {
+  __shared__ wl::FsmSlice fs_all[CHUNK_WARPS];
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * CHUNK_WARPS + warp;
+  if (b >= batch) return;  // the whole warp, and nothing below waits for it
+  wl::FsmSlice& fs = fs_all[warp];
+  const wl::Geo g = wl::make_geo();
+  wl::Cells s;
   Agents A;
-  load_board(in, b, c, s, A);
-  fsm_load(fin, b, c, fs);
+  wl::load_game(in, b, g, s, A);
+  wl::fsm_load(fin, b, g.lane, fs);
   int rnd[NA], mv[NA];
 #pragma unroll
   for (int i = 0; i < NA; ++i) rnd[i] = rands[b * NA + i];
-  fsm_act(s, A, rnd, fs, mv);
-  if (c < NA) moves[b * NA + c] = pick4(mv, c);
-  fsm_store(fout, b, c, fs);
+  wl::PhaseClock pc;
+  wl::fsm_act(s, A, rnd, fs, mv, g, pc);
+  if (g.lane < NA) moves[b * NA + g.lane] = pick4(mv, g.lane);
+  wl::fsm_store(fout, b, g.lane, fs);
 }
 
 }  // namespace pomcpp
@@ -419,13 +420,14 @@ int pomcpp_env_step(pomcpp::GameView in, pomcpp::EnvView ein, pomcpp::GameView o
   return (int)cudaGetLastError();
 }
 
-int pomcpp_env_merge(pomcpp::GameView stepped, pomcpp::EnvView ein, pomcpp::GameView out,
-                     pomcpp::EnvView eout, pomcpp::GameView fresh, int batch, int team_mode,
-                     int max_steps, int randomize_positions, void* stream) {
+// `game` is the stepped batch, written in place.
+int pomcpp_env_merge(pomcpp::GameView game, pomcpp::EnvView ein, pomcpp::EnvView eout,
+                     pomcpp::GameView fresh, int batch, int team_mode, int max_steps,
+                     int randomize_positions, void* stream) {
   if (batch <= 0) return (int)cudaErrorInvalidValue;
   const pomcpp::EnvConfig cfg{team_mode, max_steps, randomize_positions};
   POMCPP_LAUNCH(pomcpp::env_merge_kernel, pomcpp::chunk_grid(batch), pomcpp::CHUNK_WARPS * 32,
-                stream, stepped, out, ein, eout, fresh, cfg, batch);
+                stream, game, ein, eout, fresh, cfg, batch);
   return (int)cudaGetLastError();
 }
 
@@ -456,18 +458,19 @@ int pomcpp_rollout_chunk_simple(pomcpp::StateView in, pomcpp::StateView out, pom
   return (int)cudaGetLastError();
 }
 
-int pomcpp_fsm_act(pomcpp::StateView in, pomcpp::FsmView fin, pomcpp::FsmView fout,
+int pomcpp_fsm_act(pomcpp::GameView in, pomcpp::FsmView fin, pomcpp::FsmView fout,
                    const int32_t* rands, int32_t* moves, int batch, void* stream) {
   if (batch <= 0) return (int)cudaErrorInvalidValue;
-  POMCPP_LAUNCH(pomcpp::fsm_act_kernel, batch, pomcpp::NT, stream, in, fin, fout, rands, moves);
+  POMCPP_LAUNCH(pomcpp::fsm_act_kernel, pomcpp::chunk_grid(batch), pomcpp::CHUNK_WARPS * 32,
+                stream, in, fin, fout, rands, moves, batch);
   return (int)cudaGetLastError();
 }
 
-// Boards per CTA of the warp-layout kernels, the CTAs the launchers start
-// for a batch, and the CTAs of one kernel that the runtime keeps resident on
-// one SM (0 or less: none fits, or the query failed).  `kernel`: 0
+// Boards per CTA of the kernels, the CTAs the launchers start for a batch,
+// and the CTAs of one kernel that the runtime keeps resident on one SM (0 or
+// less: none fits, or the query failed).  `kernel`: 0
 // rollout_chunk_kernel<false>, 1 <true>, 2 fused_step_kernel<false>, 3
-// <true>, 4 env_merge_kernel.
+// <true>, 4 env_merge_kernel, 5 fsm_act_kernel.
 int pomcpp_chunk_warps() { return pomcpp::CHUNK_WARPS; }
 
 int pomcpp_chunk_grid(int batch) { return pomcpp::chunk_grid(batch); }
@@ -483,6 +486,7 @@ int pomcpp_ctas_per_sm(int kernel) {
     case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_step_kernel<false>, nt, 0); break;
     case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_step_kernel<true>, nt, 0); break;
     case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, env_merge_kernel, nt, 0); break;
+    case 5: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fsm_act_kernel, nt, 0); break;
   }
   return err == cudaSuccess ? n : -(int)err;
 }

@@ -9,7 +9,7 @@
 //
 //   L_CTA   one row per 128-thread CTA, one cell per thread; neighbour
 //           exchange and reductions go through shared memory and
-//           __syncthreads (what step_block.cuh and fsm_block.cuh do);
+//           __syncthreads (the engine kernels' first layout, since retired);
 //   L_WARP  one row per warp, four consecutive cells per thread, four rows
 //           per 128-thread CTA; exchange and reductions go through
 //           __shfl_sync and never touch shared memory or a barrier.

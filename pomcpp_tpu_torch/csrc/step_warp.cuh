@@ -6,8 +6,7 @@
 // `_ray_reach` :189).  The semantic spec is the plain PyTorch version,
 // pomcpp_tpu_torch/engine/cellular.py `cellular_step(..., max_chain_rounds=4)`;
 // the code below follows it phase for phase and must agree with it bit for
-// bit.  step_block.cuh supplies the constants, `Agents` and the scalar
-// helpers.
+// bit.  common.cuh supplies the constants, `Agents` and the scalar helpers.
 //
 // What bounded the CTA layout this replaced on this card (one board per
 // 128-thread CTA, one cell per thread): latency, not bytes and not arithmetic -- 60-100
@@ -66,7 +65,7 @@
 
 #include <cstdint>
 
-#include "step_block.cuh"
+#include "common.cuh"
 
 namespace pomcpp {
 namespace wl {

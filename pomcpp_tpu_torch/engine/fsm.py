@@ -8,10 +8,13 @@ ten-array ``FsmState`` (``agents/simple.py``); one act for B boards:
   FSM (``agents.simple_cellular.simple_agent_cell_joint``) read from and
   written to the kernel layout;
 * ``fsm_act(cs, fsm_state, rand, device=None)`` -- launches
-  ``fsm_act_kernel`` (``csrc/fused_step.cu`` + ``csrc/fsm_block.cuh``) on a
-  CUDA tensor and adds one to ``_ext.LAUNCHES["fsm_act_kernel"]``; on a CPU
-  tensor it runs the plain version.  It is the one-act test bed of the
-  device code that the simple chunk kernel runs every step.
+  ``fsm_act_kernel`` (``csrc/fused_step.cu``: ``wl::fsm_act`` of
+  ``csrc/fsm_warp.cuh``, one board per warp) on a CUDA tensor and adds one
+  to ``_ext.LAUNCHES["fsm_act_kernel"]``; on a CPU tensor it runs the plain
+  version.  It is the one-act test bed of the device code that the simple
+  chunk kernel runs every step.  The kernel reads the ``CellState`` in its
+  own dtypes (bools as one byte), so for a state in those dtypes the wrapper
+  launches the kernel and nothing else.
 
 Both return ``(moves, fsm_state')``: the FSM's own moves i32[B, 4] (dead
 agents' moves are not zeroed here; the chunk does that) and the next state
@@ -63,25 +66,33 @@ def fsm_inputs(fsm_state, b: int, device):
     return arrays
 
 
-def _fsm_act_cuda(cs: CellState, fsm_state, rand):
-    from .fused_step import _kernel_inputs
+def _fsm_act_launch(lib, stream, cs: CellState, fsm_state, rand):
+    """Marshal the arguments and call the act launcher of ``lib``: an
+    ``nvcc`` build on the card's stream, which counts as a launch, or, in the
+    tests, the host build of the same source on CPU tensors
+    (``stream=None``), which does not."""
+    from .fused_step import game_arrays
 
-    ins = _kernel_inputs(cs, "cuda")
-    b = ins[0].shape[0]
-    fin = fsm_inputs(fsm_state, b, ins[0].device)
+    ins = game_arrays(cs, "cpu" if stream is None else "cuda")
+    b, dev = ins[0].shape[0], ins[0].device
+    fin = fsm_inputs(fsm_state, b, dev)
     rand = rand.to(I32).contiguous()
-    if rand.shape != (b, AGENT_COUNT) or not rand.is_cuda:
-        raise ValueError(f"rand must be i32[{b}, 4] on the card")
+    if rand.shape != (b, AGENT_COUNT) or rand.device != dev:
+        raise ValueError(f"rand must be i32[{b}, 4] on {dev}")
     fout = [torch.empty_like(t) for t in fin]
-    moves = torch.empty((b, AGENT_COUNT), dtype=I32, device=rand.device)
-    lib = _ext.lib()
+    moves = torch.empty((b, AGENT_COUNT), dtype=I32, device=dev)
     _ext.check(lib.pomcpp_fsm_act(
-        _ext.state_view(ins), _ext.fsm_view(fin), _ext.fsm_view(fout),
-        rand.data_ptr(), moves.data_ptr(), b,
-        torch.cuda.current_stream().cuda_stream,
+        _ext.game_view(ins), _ext.fsm_view(fin), _ext.fsm_view(fout),
+        rand.data_ptr(), moves.data_ptr(), b, stream,
     ), lib.pomcpp_error_string)
-    _ext.LAUNCHES["fsm_act_kernel"] += 1
+    if stream is not None:
+        _ext.LAUNCHES["fsm_act_kernel"] += 1
     return moves, FsmState(*fout)
+
+
+def _fsm_act_cuda(cs: CellState, fsm_state, rand):
+    return _fsm_act_launch(_ext.lib(), torch.cuda.current_stream().cuda_stream,
+                           cs, fsm_state, rand)
 
 
 def fsm_act(cs: CellState, fsm_state, rand, device=None):

@@ -85,14 +85,15 @@ def _mulhilo(a: int, b: torch.Tensor):
 def philox4x32(c0, c1, c2, c3, seed: int):
     """Philox4x32-10 output words (int64 tensors holding uint32 values).
 
-    The counter words broadcast against each other; ``seed`` gives the key
+    The counter words broadcast against each other and are taken mod 2^32,
+    as the kernels' ``uint32_t`` casts take them; ``seed`` gives the key
     and is a Python int or a non-negative int64 tensor that broadcasts
     against the counter words (one key per element).
     """
     device = next((c.device for c in (c0, c1, c2, c3)
                    if isinstance(c, torch.Tensor)), None)
     c0, c1, c2, c3 = (
-        torch.as_tensor(c, dtype=torch.int64, device=device)
+        torch.as_tensor(c, dtype=torch.int64, device=device) & _MASK32
         for c in (c0, c1, c2, c3)
     )
     c0, c1, c2, c3 = torch.broadcast_tensors(c0, c1, c2, c3)

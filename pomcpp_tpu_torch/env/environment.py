@@ -285,37 +285,44 @@ def _env_arrays(es: EnvState, device_type: str):
 def _env_launch(lib, stream, es: EnvState, team_mode: bool, max_steps: int,
                 randomize_positions: bool, fresh, moves=None, game=None):
     """Marshal an env kernel's arguments and call its launcher in ``lib``:
-    with ``moves``, the fused env step (``fused_step_kernel<true>``); with
-    ``game``, the epilogue alone on that stepped batch
-    (``env_merge_kernel``).  ``stream=None`` is the tests' host build of
-    the source on CPU tensors, which does not count as a launch."""
+    with ``moves``, the fused env step (``fused_step_kernel<true>``) into
+    new arrays; with ``game``, the epilogue alone (``env_merge_kernel``),
+    which writes that stepped batch IN PLACE (the done boards' fresh games)
+    and returns it: only the caller's one-step chunk holds it.
+    ``stream=None`` is the tests' host build of the source on CPU tensors,
+    which does not count as a launch."""
     dev_type = "cpu" if stream is None else "cuda"
     if not -2 ** 31 <= max_steps < 2 ** 31:
         raise ValueError("max_steps must fit in 32 bits")
-    ins = game_arrays(es.game, dev_type)
     env_in = _env_arrays(es, dev_type)
-    b = ins[0].shape[0]
+    b = env_in[0].shape[0]
+    games = game_arrays(es.game if game is None else game, dev_type)
+    dev = games[0].device
+    if games[0].shape[0] != b:
+        raise ValueError(f"the game must hold {b} boards")
     fresh_arrays = None
     if fresh is not None:
         fresh_arrays = game_arrays(
-            CellState(*(t.to(ins[0].device) for t in fresh)), dev_type)
+            CellState(*(t.to(dev) for t in fresh)), dev_type)
         if fresh_arrays[0].shape[0] != b:
             raise ValueError(f"fresh must hold {b} boards")
-    outs = [torch.empty_like(t) for t in ins]
     env_out = [torch.empty_like(t) for t in env_in]
-    args = (_ext.env_view(env_in), _ext.game_view(outs),
-            _ext.env_view(env_out), _ext.game_view(fresh_arrays))
     cfg = (int(team_mode), int(max_steps), int(randomize_positions), stream)
     if game is None:
-        moves = moves.to(device=ins[0].device, dtype=I32).contiguous()
+        moves = moves.to(device=dev, dtype=I32).contiguous()
         if moves.shape != (b, AGENT_COUNT):
             raise ValueError(f"moves must be i32[{b}, 4]")
-        err = lib.pomcpp_env_step(_ext.game_view(ins), *args, moves.data_ptr(),
-                                  b, *cfg)
+        outs = [torch.empty_like(t) for t in games]
+        err = lib.pomcpp_env_step(
+            _ext.game_view(games), _ext.env_view(env_in), _ext.game_view(outs),
+            _ext.env_view(env_out), _ext.game_view(fresh_arrays),
+            moves.data_ptr(), b, *cfg)
         kernel = "fused_env_step_kernel"
     else:
-        stepped = game_arrays(game, dev_type)
-        err = lib.pomcpp_env_merge(_ext.game_view(stepped), *args, b, *cfg)
+        outs = games
+        err = lib.pomcpp_env_merge(
+            _ext.game_view(games), _ext.env_view(env_in),
+            _ext.env_view(env_out), _ext.game_view(fresh_arrays), b, *cfg)
         kernel = "env_merge_kernel"
     _ext.check(err, lib.pomcpp_error_string)
     if stream is not None:
@@ -371,8 +378,8 @@ def env_step_auto_reset_batch_fsm(es: EnvState, learner_moves, fsm_state,
     Same env semantics as ``env_step_auto_reset_batch``, but the lanes not
     in ``learner_slots`` act through the FSM of ``engine.fsm`` inside
     ``rollout_chunk(steps=1, policy="simple")`` -- on the card one launch of
-    the simple chunk kernel, then one of ``env_merge_kernel`` for the
-    epilogue.  ``fsm_state`` is the ten-array state
+    the simple chunk kernel, then one of ``env_merge_kernel``, which writes
+    the epilogue into the chunk's output in place.  ``fsm_state`` is the ten-array state
     (``simple_fsm_state_init``); ``seed`` keys the Philox draws of the FSM's
     rands and must differ from step to step.  ``rand_moves`` (i32[B, 4],
     tests) supplies those draws instead; the learner lanes of the merged

@@ -4,18 +4,18 @@ Three kinds of test:
 
 * source hygiene -- every header a ``.cu`` includes is hashed into its
   library's file name (an edited header must trigger a rebuild), the
-  warp-layout code holds no CTA-wide barrier, and the launch grid covers
-  the batch;
+  kernels hold one board per warp and no CTA-wide barrier, and the launch
+  grid covers the batch;
 * the warp-layout kernels' OWN source run on the CPU: ``csrc/host_emu``
   stands in for ``cuda_runtime.h``, g++ compiles ``fused_step.cu`` as plain
   C++, and a warp runs as 32 fibers that meet at every ``*_sync``
   intrinsic.  Results are held bit for bit (tolerance: exact equality, all
   state is integer) against the plain versions -- the chunk kernel against
   ``rollout_chunk_plain``, the step kernel against ``fused_step_plain``,
-  the env kernels against the env functions on CPU tensors -- which
-  ``tests/test_torch_chunk.py``, ``test_torch_fsm.py``,
-  ``test_torch_fused_step.py`` and ``test_torch_env.py`` hold against the
-  JAX functions;
+  the act kernel against ``fsm_act_plain``, the env kernels against the env
+  functions on CPU tensors -- which ``tests/test_torch_chunk.py``,
+  ``test_torch_fsm.py``, ``test_torch_fused_step.py`` and
+  ``test_torch_env.py`` hold against the JAX functions;
 * the emulator itself: it must report an intrinsic reached by only part of
   a warp instead of hanging or passing.
 """
@@ -34,7 +34,11 @@ from pomcpp_tpu_torch.convert import diff_fields
 from pomcpp_tpu_torch.core.board_gen import random_cell_state
 from pomcpp_tpu_torch.engine import fused_step as fs
 from pomcpp_tpu_torch.engine.cellular import empty_cell_state
-from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
+from pomcpp_tpu_torch.engine.fsm import (
+    _fsm_act_launch,
+    fsm_act_plain,
+    simple_fsm_state_init,
+)
 from pomcpp_tpu_torch.env import environment as env
 
 CSRC = _ext.CSRC
@@ -68,6 +72,24 @@ def test_every_included_header_is_hashed_into_the_build(library):
 def test_every_cu_file_is_a_library():
     assert {p.name for p in CSRC.glob("*.cu")} == \
         {source for source, _ in _ext.LIBRARIES.values()}
+
+
+def test_every_header_in_csrc_is_in_a_library():
+    listed = {h for _, headers in _ext.LIBRARIES.values() for h in headers}
+    assert {p.name for p in CSRC.glob("*.cuh")} == listed
+
+
+def test_the_cta_layout_is_gone():
+    """No kernel of ``fused_step.cu`` holds one board per CTA: the headers
+    of that layout are deleted and every kernel is launched as
+    ``CHUNK_WARPS`` boards of one warp each."""
+    assert not (CSRC / "fsm_block.cuh").exists()
+    assert not (CSRC / "step_block.cuh").exists()
+    code = _strip_comments((CSRC / "fused_step.cu").read_text())
+    kernels = re.findall(r"__global__ void (__launch_bounds__\([^)]*\))", code)
+    assert len(kernels) == 4
+    assert all(k.startswith("__launch_bounds__(CHUNK_WARPS * 32") for k in kernels)
+    assert not CTA_BARRIER.search(code)
 
 
 @pytest.mark.parametrize("header", WARP_HEADERS)
@@ -112,9 +134,24 @@ def test_step_and_env_kernels_run_the_warp_layout_without_a_cta_barrier(
     if kernel == "fused_step_kernel":
         assert "wl::step_board(" in body
         assert not re.search(r"(?<!wl::)\bstep_board\(", body)
-    # The CTA body of the one-step kernel is gone.
-    assert "step_board" not in _strip_comments(
-        (CSRC / "step_block.cuh").read_text())
+    if kernel == "env_merge_kernel":    # in place: a running board moves no game
+        assert "wl::env_reset_board(b, g, fresh, ein, game, eout," in body
+        assert "wl::load_game(" not in body and "wl::store_game(" not in body
+        assert "plane[" not in body and "agent[" not in body
+    # The shared header holds constants and helpers, no kernel body.
+    common = _strip_comments((CSRC / "common.cuh").read_text())
+    assert "step_board" not in common and "struct Cell " not in common
+
+
+def test_fsm_act_kernel_runs_the_warp_body_without_a_cta_barrier():
+    body = _kernel_source("fsm_act_kernel", "extern \"C\"")
+    assert not CTA_BARRIER.search(body)
+    assert "wl::fsm_act(" in body and "wl::FsmSlice" in body
+    assert not re.search(r"(?<!wl::)\bfsm_act\(", body)
+    assert "blockIdx.x * CHUNK_WARPS + warp" in body
+    assert "if (b >= batch) return;" in body
+    assert "wl::load_game(in" in body      # the typed state, bools as bytes
+    assert "for (" not in body.split("wl::fsm_act(")[1]  # no loop of acts
 
 
 def test_chunk_grid_is_the_launchers():
@@ -123,9 +160,9 @@ def test_chunk_grid_is_the_launchers():
     warp past the end of the batch returns."""
     code = _strip_comments((CSRC / "fused_step.cu").read_text())
     assert "return (batch + CHUNK_WARPS - 1) / CHUNK_WARPS;" in code
-    assert code.count("pomcpp::chunk_grid(batch)") == 6
+    assert code.count("pomcpp::chunk_grid(batch)") == 7
     assert code.count("pomcpp::CHUNK_WARPS * 32, stream") == 4
-    assert code.count("pomcpp::CHUNK_WARPS * 32,\n") == 1
+    assert code.count("pomcpp::CHUNK_WARPS * 32,\n") == 2
     assert "blockIdx.x * CHUNK_WARPS + warp" in _chunk_kernel_source()
     assert "if (b >= batch) return;" in _chunk_kernel_source()
 
@@ -447,6 +484,17 @@ def test_env_step_source_matches_plain(host_lib, case, done):
     assert resets > 0
 
 
+def _merge(host_lib, es, game, fresh=None, team_mode=False, max_steps=0,
+           randomize_positions=False):
+    """``env_merge_kernel``'s source on a copy of ``game``, which it writes
+    in place and returns as the merged game."""
+    mine = type(game)(*(t.clone() for t in game))
+    out = env._env_launch(host_lib, None, es, team_mode, max_steps,
+                          randomize_positions, fresh, game=mine)
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(out.game, mine))
+    return out
+
+
 @pytest.mark.parametrize("done", ["none", "some", "all"])
 @pytest.mark.parametrize("case", sorted(ENV_CASES) + ["fresh"])
 def test_env_merge_source_matches_plain(host_lib, case, done):
@@ -467,11 +515,32 @@ def test_env_merge_source_matches_plain(host_lib, case, done):
         game, fsm = fs.rollout_chunk_plain(
             plain.game, 40 + t, 1, "simple", moves=mv, auto_reset=False,
             fsm_state=fsm, inject_slots=(0,), prng_rand=True)
-        card = env._env_launch(host_lib, None, card, kw["team_mode"],
-                               kw["max_steps"], kw["randomize_positions"],
-                               fresh, game=game)
+        card = _merge(host_lib, card, game, fresh, **kw)
         plain = env._merge_done_and_reset(plain, game, fresh=fresh, **kw)
         _same_env(card, plain, f"{case} step {t}")
+
+
+@pytest.mark.parametrize("case", ["ffa", "team_max_steps",
+                                  "randomize_positions"])
+@pytest.mark.parametrize("b", [1, 5, 1021])
+def test_env_merge_source_matches_plain_on_ragged_batches(host_lib, b, case):
+    """``env_merge_kernel`` with done boards in the middle of a CTA (and
+    alone in one), the last CTA partly or mostly without a board."""
+    kw = _env_kwargs(case)
+    es = env.env_reset(29, b, device="cpu")
+    gen = torch.Generator().manual_seed(b)
+    dead = torch.rand((b, 4), generator=gen) < 0.3
+    done = torch.zeros(b, dtype=torch.bool)
+    done[1::4] = True             # warp 1 of every CTA
+    done[b // 2] = True
+    card = plain = es._replace(game=chip_smoke.kill(es.game, dead), done=done)
+    for t in range(2):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
+        game = fs.fused_step_plain(plain.game, mv)
+        game = game._replace(timestep=game.timestep + 5)
+        card = _merge(host_lib, card, game, **kw)
+        plain = env._merge_done_and_reset(plain, game, **kw)
+        _same_env(card, plain, f"{case} {b} boards step {t}")
 
 
 @pytest.mark.parametrize("b,steps,inject", [
@@ -500,6 +569,109 @@ def test_simple_chunk_source_carries_its_state_across_chunks(host_lib):
         _same(k, p)
         assert all(torch.equal(a, c) for a, c in zip(fk, fp))
         ck, fk, cp, fp = k[0], k[3], p[0], p[3]
+
+
+# --- the act kernel on the CPU ----------------------------------------------------
+
+
+def _acts_both(host_lib, cs, acts, seed):
+    """``acts`` acts of ``fsm_act_kernel``'s source and of ``fsm_act_plain``
+    in a row, the FSM state carried and the board stepped by the plain
+    version between acts; moves and all ten FSM arrays held bit for bit."""
+    b = cs.board.shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    fk = fp = simple_fsm_state_init(b, "cpu")
+    for t in range(acts):
+        rand = torch.randint(0, 5, (b, 4), generator=gen, dtype=torch.int32)
+        mk, fk = _fsm_act_launch(host_lib, None, cs, fk, rand)
+        mp, fp = fsm_act_plain(cs, fp, rand)
+        assert torch.equal(mk, mp), f"moves, act {t}"
+        for k, (x, y) in enumerate(zip(fk, fp)):
+            assert torch.equal(x, y), f"FSM array {k}, act {t}"
+        cs = fs.fused_step_plain(cs, torch.where(cs.agent_dead, 0, mp))
+    return fp
+
+
+@pytest.mark.parametrize("b", [1, 3, 5, 64])
+def test_act_source_matches_plain_on_random_states(host_lib, b):
+    """Three acts in a row on generated boards, the last CTA partly or
+    mostly without a board."""
+    cs, gen = _batch(b, 400 + b)
+    if b > 1:
+        cs = chip_smoke.close_quarters(cs, gen)
+    fsm = _acts_both(host_lib, cs, 3, b)
+    assert (fsm.rp_count == 3).all()
+
+
+@pytest.mark.parametrize("state,dead", [
+    ("kick_heavy", None), ("ring", ()), ("ring", (0,)), ("ring", (2,)),
+])
+def test_act_source_matches_plain_on_swept_states(host_lib, state, dead):
+    """32 copies, their own rands, two acts: the kick-heavy state (two
+    agents next to a bomb, so the danger map and the flee path run) and
+    four agents on a 2x2 square, ``dead`` of them dead (their BFS sources
+    pruned)."""
+    one = chip_smoke.kick_heavy_state("cpu") if state == "kick_heavy" else \
+        chip_smoke.ring_state("cpu", dead)
+    _acts_both(host_lib, _copies(one, 32), 2, 5)
+
+
+def test_act_marshalling_calls_no_operator_but_allocations(host_lib):
+    """On a state in its own dtypes the act's marshalling dispatches no
+    PyTorch operator that could launch work (``chip_smoke.device_ops``, the
+    card check of ``fsm_act``); int32 flags need two conversions, and the
+    check sees them."""
+    cs, gen = _batch(5, 9)
+    fsm = simple_fsm_state_init(5, "cpu")
+    rand = torch.randint(0, 5, (5, 4), generator=gen, dtype=torch.int32)
+    assert chip_smoke.device_ops(
+        lambda: _fsm_act_launch(host_lib, None, cs, fsm, rand)) == []
+    flags_i32 = cs._replace(agent_can_kick=cs.agent_can_kick.int(),
+                            agent_dead=cs.agent_dead.int())
+    ops = chip_smoke.device_ops(
+        lambda: _fsm_act_launch(host_lib, None, flags_i32, fsm, rand))
+    assert len(ops) == 2 and all("_to_copy" in op for op in ops)
+
+
+def test_philox_takes_counter_words_mod_2_32():
+    """The plain Philox takes its counter words mod 2^32, as the kernels'
+    ``uint32_t`` casts do: a board id of 5 + 2^32 draws board 5's words."""
+    big = fs.philox4x32(5 + 2 ** 32, 7, 3, 0, 1234)
+    small = fs.philox4x32(5, 7, 3, 0, 1234)
+    assert int(big[0]) == int(small[0]) == 2773061222
+    assert all(torch.equal(a, b) for a, b in zip(big, small))
+
+
+@pytest.mark.parametrize("kernel", ["step", "merge"])
+def test_env_sources_match_plain_on_key_columns_above_2_32(host_lib, kernel):
+    """Key rows whose board id is 5 + 2^32 (and others above 2^32) and whose
+    reset count is at or above 2^32: the reset draws of both env kernels
+    equal the plain version's."""
+    b = 8
+    es = env.env_reset(21, b, device="cpu")
+    key = es.key.clone()
+    key[:, 1] = 5 + 2 ** 32 + torch.arange(b)
+    key[:, 2] = 2 ** 32 + torch.arange(b)
+    done = torch.zeros(b, dtype=torch.bool)
+    done[::2] = True
+    card = plain = es._replace(key=key, done=done)
+    gen = torch.Generator().manual_seed(23)
+    for t in range(3):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
+        if kernel == "step":
+            card = env._env_launch(host_lib, None, card, False, 0, True, None,
+                                   moves=mv)
+            plain = env.env_step_auto_reset_batch(
+                plain, mv, fused=True, randomize_positions=True, device="cpu")
+        else:
+            game = fs.fused_step_plain(plain.game, mv)
+            game = game._replace(timestep=game.timestep + 1)
+            card = _merge(host_lib, card, game, randomize_positions=True)
+            plain = env._merge_done_and_reset(plain, game, False, 0, True)
+        _same_env(card, plain, f"{kernel} step {t}")
+        card = plain = plain._replace(done=done)    # reset again, count + 1
+    assert int(plain.key[0, 1]) == 5 + 2 ** 32
+    assert int(plain.key[:, 2].min()) >= 2 ** 32
 
 
 # --- probe_dot_tc_kernel's arithmetic on the CPU --------------------------------
