@@ -77,6 +77,41 @@ Phases (any failure exits non-zero before the result line):
               reset before and read after), then every pattern's plain
               version at those sizes, timed and compared again.
 
+9. learn   -- the PPO learner.  Held, card against the same call on CPU
+              tensors at the full-width runs' board counts, 8 steps with
+              injected moves, fresh boards and FSM rands and a step cap of
+              12 (resets, deaths and step-cap draws in the window):
+              ``collect_rollout_batch`` against three in-kernel
+              SimpleAgents (learner slot 0) at 2048 boards and in
+              shared-policy self-play at 4096 boards, both
+              ``fused_env=True``, each launch count exact -- the env and
+              FSM state, features, moves, rewards and masks bit for bit,
+              ``logp``, ``value`` and the bootstrap values within
+              ``LEARN_TOL`` -- then one ``ppo_update`` of the self-play
+              batch (4 contiguous minibatches of 32,768 rows, self-play's
+              minibatch) from the same params, loss and each leaf's
+              parameter change within ``LEARN_TOL``.  A few collector
+              steps of each configuration
+              run under ``set_sync_debug_mode("error")`` (no host read).
+              Then its path at full width: the flagship recipe of
+              docs/TRAINING.md:33-35 (2048 boards x 64 steps, 1 epoch, 2
+              minibatches, learner slot 0 against SimpleAgents) for 1
+              warm-up and 3 timed ``ppo_train_step`` iterations, and
+              shared-policy self-play (4096 boards x 64 steps, 2 epochs, 8
+              minibatches) for 1 and 2: env-steps/s with the metrics' host
+              fetch inside the window, each iteration's port launches held
+              to exactly 64 of its env kernels, one more iteration split by
+              CUDA events into collect, GAE plus flatten and update, the
+              kernels and copies per rollout step and the device's idle
+              share from ``torch.profiler`` over a 4-step collect (an
+              empty profiler session fails the phase), the peak device
+              memory above what was allocated before the run, finite
+              metrics and finished episodes; launch
+              counts reset before and read after.  Last,
+              ``artifacts/ppo_vs_simple`` in slot 0 against three in-kernel
+              SimpleAgents, 1024 boards x 832 steps with no update, must win
+              a larger share of its finished games than a fresh net.
+
 ``--profile`` builds, runs the env path at full width and then a
 ``torch.profiler`` pass over 32 fused and 32 mixed-control env steps, prints
 the kernels and copies per step, the device idle share and the device time
@@ -85,8 +120,9 @@ by kernel; then it builds the chunk kernel with its phase clocks
 path's size, holds their result to the plain build's and prints the share of
 each phase of a step in the summed warp cycles.  It exits with code 4 and
 no result line.
-``--only=probes,env`` (any of step, fsm, chunk, env, probes) builds, runs
-just those held comparisons and exits with code 4 and no result line.
+``--only=probes,env`` (any of step, fsm, chunk, env, probes, learn) builds,
+runs just those held comparisons (for ``learn``, the whole learn phase) and
+exits with code 4 and no result line.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -107,6 +143,7 @@ MAIN_STEPS = 4          # single fused steps on the main path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 memory rate
 OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor peak
 TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor-core dense peak
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor-core dense peak
 STATE_BYTES = 7 * 121 * 4 + 7 * 4 * 4   # one board's 14 state arrays, int32
 # One board's CellState in its own dtypes (bool as a byte) and the rest of
 # its EnvState (done, winner, is_draw, key).
@@ -1442,6 +1479,455 @@ def phase_probes_main(dev):
     return rows, launches
 
 
+# --- Phase 9: the learner ---------------------------------------------------
+
+LEARN_BATCH, LEARN_ROLLOUT, LEARN_TIMED = 2048, 64, 3   # docs/TRAINING.md:33
+SELFPLAY_BATCH, SELFPLAY_TIMED = 4096, 2
+# The held comparisons run at the full-width runs' own board counts, for
+# fewer steps: the step cap falls inside them (``learn_held_start``).
+LEARN_HELD_BOARDS = {"simple": LEARN_BATCH, "selfplay": SELFPLAY_BATCH}
+LEARN_HELD_STEPS, LEARN_HELD_CAP = 8, 12
+# The held update's minibatches: 4 x 32,768 rows, self-play's minibatch.
+LEARN_HELD_MINIBATCHES = 4
+WIN_BOARDS, WIN_STEPS = 1024, 832
+# Card (cuDNN / cuBLAS bf16) against the same call on the CPU: logp and value
+# of the collector (max abs), and, after one update from the same params and
+# batch, the loss (relative) and each parameter leaf's change (relative L2).
+# Set at about 4x what an NVIDIA H100 80GB HBM3 gave at 256 boards x 16 steps
+# and an update of two 8,192-row minibatches (2.4e-4, 3.5e-4, 7.1e-5, 0.0100);
+# at the held sizes above it gives 4.5e-4, 4.7e-4, 5.2e-5, 0.0136.
+LEARN_TOL = {"logp": 1e-3, "value": 1.5e-3, "loss": 3e-4, "update": 0.04}
+LEARN_CKPT = "artifacts/ppo_vs_simple"
+
+
+def flagship_cfg():
+    """The recipe of docs/TRAINING.md:33-35 (``--batch 2048 --rollout 64
+    --epochs 1 --opponent simple --learner-slots 0 --fused``)."""
+    from pomcpp_tpu_torch.learner.ppo import PPOConfig
+
+    return PPOConfig(rollout_len=LEARN_ROLLOUT, epochs=1, minibatches=2,
+                     opponent="simple", learner_slots=(0,), fused_env=True,
+                     max_episode_steps=800)
+
+
+def selfplay_cfg():
+    from pomcpp_tpu_torch.learner.ppo import PPOConfig
+    from pomcpp_tpu_torch.train_ppo import auto_minibatches
+
+    return PPOConfig(rollout_len=LEARN_ROLLOUT, epochs=2, fused_env=True,
+                     minibatches=auto_minibatches(SELFPLAY_BATCH,
+                                                  LEARN_ROLLOUT, 4))
+
+
+def learn_held_start(b: int, seed: int):
+    """CPU boards stepped 12 random fused env steps (bombs in play), with
+    timesteps spread over 0..11, so that ``LEARN_HELD_CAP`` falls inside
+    the held runs' steps for most boards, and the scenarios of
+    ``env_held_start`` in the first boards."""
+    import torch
+
+    from pomcpp_tpu_torch.env.environment import env_step_auto_reset_batch
+
+    es = env_held_start(b, seed)
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(12):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
+        es = env_step_auto_reset_batch(es, mv, fused=True, device="cpu")
+    ts = torch.randint(0, 12, (b,), generator=gen, dtype=torch.int32)
+    return es._replace(game=es.game._replace(timestep=ts))
+
+
+def held_collect(model, es, cfg, dev, hooks):
+    """``collect_rollout_batch`` on ``dev`` with the hooks moved there and,
+    against SimpleAgents, a fresh FSM state."""
+    import torch
+
+    from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
+    from pomcpp_tpu_torch.engine.fused_step import _to_device
+    from pomcpp_tpu_torch.env.environment import _env_to_device
+    from pomcpp_tpu_torch.learner.ppo import collect_rollout_batch
+
+    kw = {"moves": hooks["moves"].to(dev),
+          "fresh": [_to_device(c, dev) for c in hooks["fresh"]]}
+    if cfg.opponent:
+        kw["rand_moves"] = hooks["rand_moves"].to(dev)
+        kw["opp_state"] = simple_fsm_state_init(es.done.shape[0], dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return collect_rollout_batch(model, _env_to_device(es, dev), cfg, gen,
+                                 device=dev, **kw)
+
+
+def rel_l2(a, b) -> float:
+    """Relative L2 difference of ``b`` from ``a`` (any devices)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / a.norm().clamp_min(1e-30))
+
+
+def phase_learn_held(dev, boards=None):
+    """The collector and one update on the card against the same calls on
+    CPU tensors, at ``boards`` (default ``LEARN_HELD_BOARDS``: the
+    full-width runs' board counts); returns the measured differences."""
+    import copy
+
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.learner.ppo import (
+        PPOConfig,
+        compute_gae,
+        flatten_batch,
+        ppo_init,
+        ppo_update,
+    )
+
+    boards = boards or LEARN_HELD_BOARDS
+    steps = LEARN_HELD_STEPS
+    gen = torch.Generator().manual_seed(71)
+    err = {"logp": 0.0, "value": 0.0}
+    batches = {}
+    for name, kernels, extra in (
+        ("simple", {"rollout_chunk_simple_kernel": steps,
+                    "env_merge_kernel": steps},
+         dict(opponent="simple", learner_slots=(0,))),
+        ("selfplay", {"fused_env_step_kernel": steps}, {}),
+    ):
+        b = boards[name]
+        cfg = PPOConfig(rollout_len=steps, fused_env=True,
+                        max_episode_steps=LEARN_HELD_CAP, **extra)
+        n = len(cfg.learner_slots) if cfg.opponent else 4
+        hooks = {
+            "moves": torch.randint(0, 6, (steps, b, n), generator=gen,
+                                   dtype=torch.int32),
+            "fresh": [random_cell_state(b, generator=gen, device="cpu")
+                      for _ in range(steps)],
+        }
+        if cfg.opponent:
+            hooks["rand_moves"] = torch.randint(0, 5, (steps, b, 4),
+                                                generator=gen,
+                                                dtype=torch.int32)
+        es = learn_held_start(b, 72)
+        model = ppo_init(3, cfg, "cpu").model
+        plain = held_collect(model, es, cfg, torch.device("cpu"), hooks)
+        _ext.reset_launches()
+        card = held_collect(copy.deepcopy(model).to(dev), es, cfg, dev, hooks)
+        got = {k: v for k, v in _ext.LAUNCHES.items() if v}
+        if dev.type == "cuda" and got != kernels:
+            raise AssertionError(f"[learn] held {name}: launches {got}, "
+                                 f"expected {kernels}")
+        expect_env_equal(f"[learn] held {name} final env", card[0], plain[0])
+        if cfg.opponent:
+            expect_fsm_equal(f"[learn] held {name} FSM",
+                             [t.cpu() for t in card[3]], plain[3])
+        tc, tp = card[1], plain[1]
+        for field in tp._fields:
+            a, c = getattr(tp, field), getattr(tc, field).cpu()
+            if field in err:
+                e = float((a - c).abs().max())
+                err[field] = max(err[field], e)
+                if e > LEARN_TOL[field]:
+                    raise AssertionError(f"[learn] held {name}: {field} "
+                                         f"differs by {e}")
+            elif not torch.equal(a, c):
+                raise AssertionError(f"[learn] held {name}: {field} differs")
+        e = float((card[2].cpu() - plain[2]).abs().max())
+        err["value"] = max(err["value"], e)
+        if e > LEARN_TOL["value"]:
+            raise AssertionError(f"[learn] held {name}: boot value by {e}")
+        seen = {"resets": int((~tp.valid).sum()), "ends": int(tp.done.sum()),
+                "draws": int(tp.draw.sum()),
+                "deaths": int((tp.reward < 0).sum()),
+                "wins": int((tp.reward > 0).sum())}
+        if min(seen["resets"], seen["draws"], seen["deaths"]) == 0:
+            raise AssertionError(f"[learn] held {name}: window too quiet "
+                                 f"{seen}")
+        log(f"[learn] held {name}, {b} boards x {steps} steps, card == CPU "
+            f"bit for bit (env, FSM, feats, moves, rewards, masks), launches "
+            f"{got}, {seen}")
+        batches[name] = (cfg, model, tp, plain[2])
+
+    # One update from the same params and batch, contiguous minibatches.
+    cfg, model, traj, boot = batches["selfplay"]
+    cfg = cfg._replace(epochs=1, minibatches=LEARN_HELD_MINIBATCHES,
+                       shuffle_minibatches=False)
+    adv, ret = compute_gae(traj, boot, cfg)
+    flat = flatten_batch(traj, adv, ret)
+    results = []
+    for d in (torch.device("cpu"), dev):
+        ts = ppo_init(3, cfg, d)
+        ts.model.load_state_dict(model.state_dict())
+        before = [p.detach().clone() for p in ts.model.parameters()]
+        ts, metrics = ppo_update(ts, tuple(x.to(d) for x in flat), cfg)
+        delta = [p.detach() - q for p, q in zip(ts.model.parameters(), before)]
+        results.append((float(metrics["loss"]), delta))
+    (loss_cpu, d_cpu), (loss_card, d_card) = results
+    err["loss"] = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    err["update"] = max(rel_l2(a, b) for a, b in zip(d_cpu, d_card))
+    for k in ("loss", "update"):
+        if err[k] > LEARN_TOL[k]:
+            raise AssertionError(f"[learn] held update: {k} differs by "
+                                 f"{err[k]}")
+    log(f"[learn] held: card vs CPU, logp {err['logp']:.3g} (tolerance "
+        f"{LEARN_TOL['logp']}), value {err['value']:.3g} "
+        f"({LEARN_TOL['value']}); one update ({len(flat[0])} rows, "
+        f"{cfg.minibatches} minibatches): loss {loss_card:.6g} vs "
+        f"{loss_cpu:.6g}, relative {err['loss']:.3g} ({LEARN_TOL['loss']}); "
+        f"parameter change, worst leaf's relative L2 {err['update']:.3g} "
+        f"({LEARN_TOL['update']})")
+    return err
+
+
+def timed_iterations(ts, es, cfg, opp, iters, expect):
+    """``iters`` ``ppo_train_step`` calls, each timed on the host clock with
+    the host fetch of its metrics inside the window, and each holding the
+    port's launches to ``expect``."""
+    import math
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.learner.ppo import ppo_train_step
+
+    rows = []
+    for _ in range(iters):
+        before = dict(_ext.LAUNCHES)
+        t0 = time.perf_counter()
+        if cfg.opponent:
+            ts, es, metrics, opp = ppo_train_step(ts, es, cfg, opp)
+        else:
+            ts, es, metrics = ppo_train_step(ts, es, cfg)
+        m = {k: float(v) for k, v in metrics.items()}
+        sec = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in _ext.LAUNCHES.items()
+               if v != before[k]}
+        if got != expect:
+            raise AssertionError(f"[learn] an iteration launched {got}, "
+                                 f"expected {expect}")
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"[learn] metrics not finite: {m}")
+        rows.append((sec, m))
+    return ts, es, opp, rows
+
+
+def split_iteration(ts, es, cfg, opp):
+    """One more iteration with CUDA events at its boundaries: ms of collect,
+    GAE plus flatten, and update."""
+    from pomcpp_tpu_torch.learner.ppo import (
+        collect_rollout_batch,
+        compute_gae,
+        flatten_batch,
+        ppo_update,
+    )
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    out = collect_rollout_batch(ts.model, es, cfg, ts.gen, opp,
+                                host_gen=ts.host_gen)
+    ev[1].record()
+    adv, ret = compute_gae(out[1], out[2], cfg)
+    flat = flatten_batch(out[1], adv, ret)
+    ev[2].record()
+    ts, _ = ppo_update(ts, flat, cfg)
+    ev[3].record()
+    ev[3].synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    return ts, out[0], out[3] if cfg.opponent else None, dict(
+        zip(("collect_ms", "gae_flatten_ms", "update_ms"), ms))
+
+
+def rollout_step_profile(ts, es, cfg, opp, steps=4):
+    """Kernels and copies per rollout step and the device's idle share over a
+    ``steps``-step collect: device time from ``torch.profiler``, the step's
+    wall time from a second run without it.  Raises where the profiler
+    recorded no device activity, as ``profile_env`` does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pomcpp_tpu_torch.learner.ppo import collect_rollout_batch
+
+    cfg = cfg._replace(rollout_len=steps)
+
+    def run():
+        collect_rollout_batch(ts.model, es, cfg, ts.gen, opp,
+                              host_gen=ts.host_gen)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("[learn] torch.profiler recorded no device "
+                           "activity over the rollout steps")
+    device = sum(e.device_time_total for e in events) / steps / 1e6
+    return {"wall_ms_per_step": wall * 1e3,
+            "device_ms_per_step": device * 1e3,
+            "kernels_per_step": sum(e.count for e in events) / steps,
+            "idle_share": 1 - device / wall}
+
+
+def update_flop_per_row(model) -> int:
+    """Operations of one row's forward and backward pass: two per
+    multiply-add of every conv (at each of its output positions) and dense
+    layer, forward; twice that backward (input and weight gradients), less
+    the first layer's input gradient, which nothing needs."""
+    positions = model.width * model.width
+    macs = [layer.weight.numel() * (positions if layer.weight.dim() == 4
+                                    else 1)
+            for layer in (*model.convs, model.dense, model.policy,
+                          model.value)]
+    return 2 * sum(macs) + 4 * sum(macs) - 2 * macs[0]
+
+
+def learn_run(name, cfg, batch, timed, expect, seed):
+    """A training run at full width: 1 warm-up iteration, ``timed`` timed
+    ones, one split into its parts by CUDA events, the rollout step's
+    profile and the peak memory the run adds to what was allocated before
+    it."""
+    import torch
+
+    from pomcpp_tpu_torch.env.environment import env_reset
+    from pomcpp_tpu_torch.learner.ppo import opponent_state_init, ppo_init
+
+    # The peak is read above what earlier phases still hold, which a
+    # reset of the peak counts in.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    ts = ppo_init(seed, cfg)
+    es = env_reset(seed + 1, batch)
+    opp = opponent_state_init(batch, cfg) if cfg.opponent else None
+    ts, es, opp, _ = timed_iterations(ts, es, cfg, opp, 1, expect)
+    ts, es, opp, rows = timed_iterations(ts, es, cfg, opp, timed, expect)
+    ts, es, opp, split = split_iteration(ts, es, cfg, opp)
+    prof = rollout_step_profile(ts, es, cfg, opp)
+    slots = len(cfg.learner_slots) if cfg.opponent else 4
+    flop = update_flop_per_row(ts.model) * batch * cfg.rollout_len * slots \
+        * cfg.epochs
+    res = {
+        "boards": batch, "rollout": cfg.rollout_len, "epochs": cfg.epochs,
+        "minibatches": cfg.minibatches,
+        "env_steps_per_s": [batch * cfg.rollout_len / s for s, _ in rows],
+        "iter_s": [s for s, _ in rows],
+        **split,
+        "update_flop": flop,
+        "update_bound_ms": flop / BF16_OPS_PER_S * 1e3,
+        "update_tflop_per_s": flop / split["update_ms"] / 1e9,
+        "launches_per_iter": expect,
+        "launches_per_rollout_step": {k: v / cfg.rollout_len
+                                      for k, v in expect.items()},
+        "rollout_step": prof,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() - held_before,
+        "held_before_bytes": held_before,
+        "episodes": [m["episodes"] for _, m in rows],
+        "metrics_last": rows[-1][1],
+    }
+    if sum(res["episodes"]) <= 0:
+        raise AssertionError(f"[learn] {name}: no episode ended")
+    log(f"[learn] {name}: {json.dumps(res)}")
+    return res
+
+
+def win_share(model, seed: int) -> dict:
+    """The net in slot 0 against three in-kernel SimpleAgents, no update:
+    ``WIN_BOARDS`` boards x ``WIN_STEPS`` steps; the share of finished games
+    the net won."""
+    import torch
+
+    from pomcpp_tpu_torch.env.environment import env_reset
+    from pomcpp_tpu_torch.learner.ppo import (
+        collect_rollout_batch,
+        opponent_state_init,
+    )
+
+    cfg = flagship_cfg()
+    es = env_reset(seed, WIN_BOARDS)
+    opp = opponent_state_init(WIN_BOARDS, cfg)
+    gen = torch.Generator(device=es.done.device).manual_seed(seed)
+    host = torch.Generator().manual_seed(seed)
+    games = wins = draws = torch.zeros((), dtype=torch.int64,
+                                       device=es.done.device)
+    for _ in range(WIN_STEPS // cfg.rollout_len):
+        es, traj, _, opp = collect_rollout_batch(model, es, cfg, gen, opp,
+                                                 host_gen=host)
+        games = games + traj.done.sum()
+        draws = draws + traj.draw.sum()
+        wins = wins + (traj.reward > 0).sum()
+    games, wins, draws = int(games), int(wins), int(draws)
+    return {"games": games, "wins": wins, "draws": draws,
+            "share": wins / max(games, 1)}
+
+
+def phase_learn_main(dev):
+    """The learner at full width: the flagship recipe, shared-policy
+    self-play, the no-host-read check and the checked-in weights' game."""
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.env.environment import env_reset
+    from pomcpp_tpu_torch.learner.ppo import (
+        collect_rollout_batch,
+        opponent_state_init,
+        ppo_init,
+    )
+    from pomcpp_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    # No host read inside a rollout, in either configuration.
+    for cfg in (flagship_cfg(), selfplay_cfg()):
+        cfg = cfg._replace(rollout_len=4)
+        ts = ppo_init(5, cfg)
+        es = env_reset(6, 256)
+        opp = opponent_state_init(256, cfg) if cfg.opponent else None
+        no_host_read(lambda: collect_rollout_batch(
+            ts.model, es, cfg, ts.gen, opp, host_gen=ts.host_gen), calls=2)
+    log("[learn] collect_rollout_batch, self-play and against SimpleAgents: "
+        "no host read (set_sync_debug_mode('error'))")
+
+    _ext.reset_launches()
+    flagship = learn_run(
+        "flagship (--batch 2048 --rollout 64 --epochs 1 --opponent simple "
+        "--learner-slots 0 --fused)", flagship_cfg(), LEARN_BATCH,
+        LEARN_TIMED, {"rollout_chunk_simple_kernel": LEARN_ROLLOUT,
+                      "env_merge_kernel": LEARN_ROLLOUT}, 11)
+    selfplay = learn_run(
+        "shared-policy self-play (--batch 4096 --rollout 64 --epochs 2 "
+        "--fused)", selfplay_cfg(), SELFPLAY_BATCH, SELFPLAY_TIMED,
+        {"fused_env_step_kernel": LEARN_ROLLOUT}, 13)
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+
+    # The checked-in weights play the same game.
+    cfg = flagship_cfg()
+    trained = restore_checkpoint(LEARN_CKPT, ppo_init(0, cfg)).model
+    fresh = ppo_init(0, cfg).model
+    t0 = time.perf_counter()
+    wins = {"checkpoint": win_share(trained, 21),
+            "fresh": win_share(fresh, 21)}
+    log(f"[learn] {LEARN_CKPT} in slot 0 vs three in-kernel SimpleAgents, "
+        f"{WIN_BOARDS} boards x {WIN_STEPS} steps, no update (the net's "
+        f"training seat only): {json.dumps(wins)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not wins["checkpoint"]["share"] > wins["fresh"]["share"]:
+        raise AssertionError(f"[learn] the checkpoint does not beat a fresh "
+                             f"net: {wins}")
+    return {"flagship": flagship, "selfplay": selfplay, "wins": wins,
+            "launches": launches}
+
+
+def phase_learn(dev):
+    t0 = time.perf_counter()
+    held = phase_learn_held(dev)
+    res = phase_learn_main(dev)
+    res["held"] = held
+    log(f"[learn] phase took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def bound_ms(board_steps: int, bytes_moved: int) -> tuple[float, str]:
     """Least time: bytes over HBM rate vs one 32-bit op per state value per
     board-step (7 planes x 121 cells) over the 32-bit peak."""
@@ -1473,7 +1959,8 @@ def main() -> int:
         # A partial run for development: the named held phases, no result.
         for name in only[0]:
             {"step": phase_step, "fsm": phase_fsm, "chunk": phase_chunk,
-             "env": phase_env_held, "probes": phase_probes_held}[name](dev)
+             "env": phase_env_held, "probes": phase_probes_held,
+             "learn": phase_learn}[name](dev)
         torch.cuda.synchronize()
         log("partial run: no result line")
         return 4
@@ -1493,10 +1980,11 @@ def main() -> int:
     env_timing = phase_env_timing(env_res["state"])
     phase_probes_held(dev)
     probe_rows, probe_launches = phase_probes_main(dev)
+    learn = phase_learn(dev)
     torch.cuda.synchronize()
 
     paths = {"main": main_res["launches"], "env": env_res["launches"],
-             "probes": probe_launches}
+             "probes": probe_launches, "learn": learn["launches"]}
 
     def launches(name):
         by_path = {path: counts[name] for path, counts in paths.items()

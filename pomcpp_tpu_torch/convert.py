@@ -1,7 +1,6 @@
-"""Lossless conversion of game state between numpy and the port's tensors.
+"""Lossless conversion of state between numpy and the port's tensors.
 
-The system has no weights: the game state is what crosses between the JAX
-package and the port.  ``to_torch`` takes any object with the ``CellState``
+Game state.  ``to_torch`` takes any object with the ``CellState``
 field names (a ``CellState`` of numpy arrays, or the JAX package's
 ``CellState`` -- anything ``numpy.asarray`` reads) and builds the port's
 ``CellState`` on a device; ``to_numpy`` goes back.  Integer fields are int32,
@@ -14,6 +13,18 @@ layout); ``simple_state_to_fsm`` / ``fsm_to_simple_state`` map a
 physical slot ``(head + j) % 4``, stored as ``(x + 1) + 13 * (y + 1)``; the
 kernel layout's head is always 0.  The map is lossless: a state with head
 ``h`` comes back as the same ring rotated to head 0.
+
+Weights and training state.  ``params_from_jax`` / ``params_to_jax`` map
+the JAX ``ActorCritic``'s flax parameters onto the port's ``state_dict``
+and back (conv kernels HWIO <-> OIHW, dense kernels ``(in, out)`` <->
+``(out, in)``), as numpy arrays.  ``train_state_leaves`` /
+``load_train_state_leaves`` read and write a learner ``TrainState`` as the
+33 leaves of the JAX ``TrainState`` in ``jax.tree.leaves`` order: the ten
+params (per layer in flax order: bias, kernel), Adam's count, its ten
+first and ten second moments, the key (u32[2]) and ``update_count``.  The
+moments and the count go into ``torch.optim.Adam``'s ``exp_avg``,
+``exp_avg_sq`` and ``step``, so that bias correction goes on where optax
+stopped.
 """
 
 from __future__ import annotations
@@ -89,3 +100,102 @@ def fsm_to_simple_state(fsm) -> SimpleAgentState:
         rp_head=torch.zeros_like(fsm[5]), rp_count=fsm[5],
         mq_slots=torch.stack(tuple(fsm[6:]), -1),
     )
+
+
+# flax layer name -> the port's submodule, in the order of jax.tree.leaves.
+FLAX_LAYERS = (("Conv_0", "convs.0"), ("Conv_1", "convs.1"),
+               ("Dense_0", "dense"), ("Dense_1", "policy"),
+               ("Dense_2", "value"))
+N_TRAIN_STATE_LEAVES = 33
+
+
+def _kernel_from_jax(k):
+    k = np.asarray(k, np.float32)
+    return k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+
+
+def _kernel_to_jax(w):
+    w = np.asarray(w, np.float32)
+    return w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T
+
+
+def params_from_jax(params) -> dict:
+    """The port's ``state_dict`` (numpy f32) of flax ``ActorCritic`` params
+    (``{"params": {...}}`` or the inner dict)."""
+    p = params.get("params", params)
+    out = {}
+    for flax_name, name in FLAX_LAYERS:
+        out[f"{name}.weight"] = np.array(
+            _kernel_from_jax(p[flax_name]["kernel"]), order="C")
+        out[f"{name}.bias"] = np.array(p[flax_name]["bias"], np.float32)
+    return out
+
+
+def params_to_jax(state_dict) -> dict:
+    """flax ``{"params": {...}}`` (numpy f32) of the port's ``state_dict``
+    (tensors or arrays)."""
+    return {"params": {
+        flax_name: {"bias": _leaf(state_dict[f"{name}.bias"]),
+                    "kernel": _leaf(state_dict[f"{name}.weight"])}
+        for flax_name, name in FLAX_LAYERS
+    }}
+
+
+def _flax_params(model):
+    """The model's parameters in ``jax.tree.leaves`` order (per layer: bias,
+    weight)."""
+    mods = dict(model.named_modules())
+    return [p for _, name in FLAX_LAYERS
+            for p in (mods[name].bias, mods[name].weight)]
+
+
+def _leaf(t) -> np.ndarray:
+    """A parameter-shaped tensor (or array) as its JAX leaf."""
+    a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+    a = np.asarray(a, np.float32)
+    return np.ascontiguousarray(_kernel_to_jax(a)) if a.ndim > 1 else a
+
+
+def train_state_leaves(ts) -> list:
+    """The 33 leaves of the JAX ``TrainState`` for a learner ``TrainState``
+    (``learner.ppo``): params, Adam count, mu, nu, key, update_count."""
+    params = _flax_params(ts.model)
+    state = [ts.optimizer.state.get(p, {}) for p in params]
+    count = int(state[0]["step"]) if state[0] else 0
+    mu = [_leaf(s["exp_avg"]) if s else np.zeros_like(_leaf(p))
+          for p, s in zip(params, state)]
+    nu = [_leaf(s["exp_avg_sq"]) if s else np.zeros_like(_leaf(p))
+          for p, s in zip(params, state)]
+    return ([_leaf(p) for p in params] + [np.asarray(count, np.int32)] + mu
+            + nu + [np.asarray(ts.key, np.uint32).reshape(2),
+                    np.asarray(ts.update_count, np.int32)])
+
+
+def load_train_state_leaves(ts, leaves):
+    """Write the 33 JAX ``TrainState`` leaves into ``ts`` (its model and
+    optimizer, in place) and return it with the leaves' key and
+    ``update_count``."""
+    leaves = [np.asarray(a) for a in leaves]
+    if len(leaves) != N_TRAIN_STATE_LEAVES:
+        raise ValueError(f"a TrainState has {N_TRAIN_STATE_LEAVES} leaves, "
+                         f"got {len(leaves)}")
+    params = _flax_params(ts.model)
+
+    def tensor(a, p):
+        a = _kernel_from_jax(a) if a.ndim > 1 else a.astype(np.float32)
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"leaf of shape {a.shape} for a parameter of "
+                             f"shape {tuple(p.shape)}: wrong model?")
+        return torch.from_numpy(np.ascontiguousarray(a)).to(p.device)
+
+    count = int(leaves[10])
+    with torch.no_grad():
+        for i, p in enumerate(params):
+            p.copy_(tensor(leaves[i], p))
+            ts.optimizer.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": tensor(leaves[11 + i], p),
+                "exp_avg_sq": tensor(leaves[21 + i], p),
+            }
+    return ts._replace(key=leaves[31].astype(np.uint32).reshape(2),
+                       update_count=int(leaves[32]))

@@ -71,7 +71,10 @@ def _own(game: CellState, agent_id, teammate):
 
         alive = ~game.agent_dead
         shape = game.agent_x.shape[:1]
-    mate = torch.as_tensor(teammate, dtype=I32, device=dev).expand(shape)
+    if isinstance(teammate, int):       # no host-to-device copy
+        mate = torch.full(shape, teammate, dtype=I32, device=dev)
+    else:
+        mate = torch.as_tensor(teammate, dtype=I32, device=dev).expand(shape)
     return sel, alive, mate
 
 

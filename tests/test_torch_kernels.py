@@ -241,3 +241,12 @@ def test_probe_kernel_matches_plain(cuda, p, layout):
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def test_learner_collect_and_update_match_plain(cuda):
+    """``chip_smoke.py``'s held learn comparisons at 256 boards: the
+    collector on the card equals it on CPU tensors bit for bit but for
+    ``logp`` / ``value`` (within ``LEARN_TOL``), and so does one update."""
+    err = chip_smoke.phase_learn_held(cuda, {"simple": 256, "selfplay": 256})
+    assert all(err[k] <= chip_smoke.LEARN_TOL[k] for k in err)
+

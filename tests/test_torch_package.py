@@ -87,6 +87,34 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         fs.fused_step(cs, mv, device="cuda")
 
 
+def test_learner_entry_points_need_cuda(monkeypatch):
+    """``ppo_init``, the collector, ``ppo_train_step`` and the training
+    script run on the card unless the caller names the CPU."""
+    from pomcpp_tpu_torch.env.environment import env_reset
+    from pomcpp_tpu_torch.learner import PPOConfig, ppo_init, ppo_train_step
+    from pomcpp_tpu_torch.learner.ppo import collect_rollout_batch
+    from pomcpp_tpu_torch.train_ppo import main as train_main
+
+    cfg = PPOConfig(rollout_len=2, fused_env=True)
+    ts = ppo_init(0, cfg, device="cpu")
+    es = env_reset(1, 2, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ppo_init(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ppo_train_step(ts, es, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        collect_rollout_batch(ts.model, es, cfg, ts.gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--batch", "2", "--iters", "1", "--rollout", "2"])
+    # A model on the CPU is not run on another device.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="model is on cpu"):
+        ppo_train_step(ts, es, cfg, device="cuda")
+    ts2, _, metrics = ppo_train_step(ts, es, cfg, device="cpu")
+    assert ts2.update_count == 1 and set(metrics) >= {"loss", "episodes"}
+
+
 @pytest.mark.parametrize("make", ["empty_cell_state", "simple_agent_init"])
 def test_state_constructors_default_to_the_card(monkeypatch, make):
     """Like every entry point, the two state constructors put their state
