@@ -111,6 +111,43 @@ Phases (any failure exits non-zero before the result line):
               ``artifacts/ppo_vs_simple`` in slot 0 against three in-kernel
               SimpleAgents, 1024 boards x 832 steps with no update, must win
               a larger share of its finished games than a fresh net.
+10. search -- tree search, search distillation and the arena.  Held, card
+              against the same call on CPU tensors with the same draws, at
+              the full-width runs' 1024 boards wherever a kernel of the port
+              runs: ``mcts_moves_chunk`` (6 sims, depth 12, tree depth 6)
+              with exactly 42 ``rollout_chunk_kernel`` launches, bit for
+              bit; the unguided ``collect_search_rollout`` for 2 steps (2
+              sims, depth 12, tree depth 6, a step cap of 14), every field
+              bit for bit and the launches exact (112 + 2); one update of its
+              8,192 rows from the checkpoint within ``LEARN_TOL``;
+              ``play_games(["ppo", "simple", "lazy", "random"])`` for 24
+              steps from mid-game boards, ``GameResults`` and moves
+              equal with the ppo slot's moves taken from the card's run (the
+              free-running comparison is reported), 24 ``fsm_act_kernel``
+              launches.  At 256 boards, the planners that launch no kernel
+              of the port: ``mcts_moves`` and ``lookahead_moves`` (the
+              uncapped plane engine on both sides), bit for bit;
+              ``mcts_moves_net`` with ``artifacts/ppo_randseat``, root Q
+              within ``NET_Q_TOL`` where the visits agree and at most
+              ``NET_FLIP_SHARE`` of the boards' visits differing (each
+              listed with its top-two gaps).  No host read in the unguided
+              collector; the plane engine's host reads per step
+              counted.  Then the path at full width, ``train_az.py``'s
+              defaults (1024 boards x 8 steps, 16 sims, depth 12, tree depth
+              6, the shipped model): unguided from a fresh net, 1 warm-up and
+              2 timed ``az_train_step`` iterations, each holding exactly 3,584
+              ``rollout_chunk_kernel`` and 8 ``fused_env_step_kernel``
+              launches; guided from ``artifacts/ppo_randseat`` for one
+              iteration of 2 env steps; env- and search-steps/s, each
+              iteration split by CUDA events into search, features + env and
+              update, peak memory above what was held before; one env step
+              of each under ``torch.profiler`` in a child process
+              (``--search-profile-child``; 4 sims unguided, 1 guided); then
+              the arena: ``ppo,simple,simple,simple`` at 1024 games x 400
+              steps with the checkpoint and with a fresh net (seat 0 must win
+              a larger share of finished games with the checkpoint), and
+              ``azmcts,simple,simple,simple`` (24 sims) at 64 games for 2
+              steps.
 
 ``--profile`` builds, runs the env path at full width and then a
 ``torch.profiler`` pass over 32 fused and 32 mixed-control env steps, prints
@@ -120,9 +157,9 @@ by kernel; then it builds the chunk kernel with its phase clocks
 path's size, holds their result to the plain build's and prints the share of
 each phase of a step in the summed warp cycles.  It exits with code 4 and
 no result line.
-``--only=probes,env`` (any of step, fsm, chunk, env, probes, learn) builds,
-runs just those held comparisons (for ``learn``, the whole learn phase) and
-exits with code 4 and no result line.
+``--only=probes,env`` (any of step, fsm, chunk, env, probes, learn, search)
+builds, runs just those held comparisons (for ``learn`` and ``search``, the
+whole phase) and exits with code 4 and no result line.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -1928,12 +1965,621 @@ def phase_learn(dev):
     return res
 
 
+# --- Phase 10: search, distillation and the arena ----------------------------
+
+AZ_BATCH = 1024                      # scripts/train_az.py's defaults
+# The held searches.  What launches a kernel runs at the full-width runs'
+# 1024 boards and train_az.py's depths (12, tree depth 6) with fewer
+# simulations (their count only repeats the launches): the chunk search,
+# the collector (two env steps, a step cap inside the window) and its
+# update, and the arena's line-up (fewer steps, from mid-game boards).  The
+# plane engine's planners launch no kernel of the port and stay at 256
+# boards, whose CPU side sets their time.
+SEARCH_HELD_BOARDS = {"kernel": AZ_BATCH, "plane": 256}
+HELD_CHUNK = {"n_sim": 6, "depth": 12, "max_tree_depth": 6}
+HELD_PLANE = {"n_sim": 6, "depth": 6, "max_tree_depth": 4}
+HELD_COLLECT = {"rollout_len": 2, "n_sim": 2, "depth": 12, "max_tree_depth": 6,
+                "max_episode_steps": 14}
+HELD_ARENA_STEPS = 24
+AZ_CKPT = "artifacts/ppo_randseat"
+AZ_UNGUIDED_TIMED, AZ_GUIDED_TIMED = 2, 1
+# Cuts that keep the phase inside its time (an H100 host took 253 s for
+# the phase before them): the guided iteration rolls 2 of the 8 env steps
+# (44 s an 8-step iteration); the profiled env steps run 4 of the 16
+# simulations unguided and 1 guided (a full guided env step is 390k
+# kernels, whose profile takes minutes to read); the arena's games stop at
+# 400 of their 800 steps and the azmcts games after 2 steps (5.5 s a step).
+AZ_GUIDED_ROLLOUT = 2
+PROFILE_SIMS = {"unguided": 4, "guided": 1}
+ARENA_GAMES, ARENA_STEPS = 1024, 400
+AZ_ARENA = {"games": 64, "sims": 24, "steps": 2}
+# mcts_moves_net's root Q, card (cuDNN bf16 torso) against the CPU, where the
+# two searches' visits agree; and the share of boards whose visits may
+# differ (a near-tie of PUCT scores flipped by the logits' 1e-4 difference).
+NET_Q_TOL, NET_FLIP_SHARE = 2e-3, 0.05
+
+
+def az_cfg(**kw):
+    """``train_az.py``'s defaults (batch 1024, rollout 8, 16 sims, depth 12,
+    tree depth 6, 2 minibatches, fused env)."""
+    from pomcpp_tpu_torch.learner.distill import DistillConfig
+
+    return DistillConfig(fused_env=True, **kw)
+
+
+def tree_draws(gen, b, n_sim, depth, max_tree_depth, playout=True):
+    import torch
+
+    d = {"opponents": torch.randint(0, 6, (n_sim, max_tree_depth, b, 4),
+                                    generator=gen, dtype=torch.int32)}
+    if playout:
+        d["playout"] = torch.randint(0, 6, (n_sim, depth, b, 4),
+                                     generator=gen, dtype=torch.int32)
+    return d
+
+
+def expect_search_equal(what, card, plain) -> None:
+    import torch
+
+    for name, a, b in zip(("moves", "visits", "root_q"), card, plain):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"[search] held {what}: {name} differs "
+                                 "between the card and the CPU")
+
+
+def launched_since(before: dict) -> dict:
+    from pomcpp_tpu_torch import _ext
+
+    return {k: v - before[k] for k, v in _ext.LAUNCHES.items()
+            if v != before[k]}
+
+
+def held_net_search(dev, cs, gen, model_cpu, model_card) -> dict:
+    """``mcts_moves_net`` on the card against the CPU: moves and visits
+    where they agree, root Q within ``NET_Q_TOL`` there; boards whose visits
+    differ are counted, each with the CPU's top-two root visit and Q gaps."""
+    import torch
+
+    from pomcpp_tpu_torch.search import mcts_moves_net
+
+    kw = {k: HELD_PLANE[k] for k in ("n_sim", "max_tree_depth")}
+    d = tree_draws(gen, cs.board.shape[0], playout=False, depth=0, **kw)
+    plain = mcts_moves_net(cs, 1, model_cpu, draws=d, device="cpu", **kw)
+    card = [t.cpu() for t in mcts_moves_net(cs, 1, model_card, draws=d,
+                                            device=dev, **kw)]
+    same = (card[1] == plain[1]).all(1)
+    flips = []
+    for b in (~same).nonzero()[:, 0].tolist():
+        v, q = plain[1][b].sort(descending=True)[0], plain[2][b]
+        top = q.sort(descending=True)[0]
+        flips.append({"board": b, "moves": [int(card[0][b]),
+                                            int(plain[0][b])],
+                      "visit_gap": int(v[0] - v[1]),
+                      "q_gap": float(top[0] - top[1])})
+    q_err = float((card[2] - plain[2]).abs()[same].max()) if same.any() \
+        else 0.0
+    if q_err > NET_Q_TOL or len(flips) > NET_FLIP_SHARE * len(same) or \
+            not torch.equal(card[0][same], plain[0][same]):
+        raise AssertionError(f"[search] held mcts_moves_net: root Q {q_err}, "
+                             f"{len(flips)} boards differ: {flips}")
+    return {"root_q_err": q_err, "boards_differ": len(flips), "flips": flips}
+
+
+def held_arena(dev, model_cpu, model_card, es) -> dict:
+    """``play_games(["ppo", "simple", "lazy", "random"])`` on the card and
+    on the CPU from the same games ``es`` with the same draws.  Free-running,
+    the ppo slot's Gumbel-max samples may part at a near-tie of the
+    perturbed logits (cuDNN's bf16 convolutions against oneDNN's); so the
+    CPU run is then repeated with that slot's moves taken from the card's
+    run (``moves=``), and must give the card's ``GameResults`` and every
+    other slot's moves exactly."""
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.arena import play_games
+
+    names, steps = ["ppo", "simple", "lazy", "random"], HELD_ARENA_STEPS
+    g = es.done.shape[0]
+    gen = torch.Generator().manual_seed(91)
+    draws = [[torch.rand((g, 6), generator=gen),
+              torch.randint(0, 5, (g,), generator=gen, dtype=torch.int32),
+              None,
+              torch.randint(0, 6, (g,), generator=gen, dtype=torch.int32)]
+             for _ in range(steps)]
+    kw = dict(seed=92, check_every=steps + 1, es=es, draws=draws)
+    before = dict(_ext.LAUNCHES)
+    rec_card, rec_cpu = [], []
+    card = play_games(names, g, steps, nets=model_card, device=dev,
+                      record=rec_card, **kw)
+    got = launched_since(before)
+    if dev.type == "cuda" and got != {"fsm_act_kernel": steps}:
+        raise AssertionError(f"[search] held arena launched {got}")
+    free = play_games(names, g, steps, nets=model_cpu, device="cpu",
+                      record=rec_cpu, **kw)
+    card_moves = torch.stack([m.cpu() for m in rec_card])
+    cpu_moves = torch.stack(rec_cpu)
+    parted = (card_moves != cpu_moves).any(2).any(0)
+    rec_forced = []
+    plain = play_games(names, g, steps, nets=model_cpu, device="cpu",
+                       moves={0: card_moves[:, :, 0]}, record=rec_forced,
+                       **kw)
+    for field in ("done", "winners", "draws"):
+        if not (getattr(card, field) == getattr(plain, field)).all():
+            raise AssertionError(f"[search] held arena: {field} differs")
+    if not torch.equal(torch.stack(rec_forced), card_moves):
+        raise AssertionError("[search] held arena: the moves differ")
+    done_at_entry = es.done.cpu()
+    return {"games": g, "steps": steps, "launches": got,
+            "done_at_entry": int(done_at_entry.sum()),
+            "finished_in_window": int((torch.from_numpy(card.done)
+                                       & ~done_at_entry).sum()),
+            "won": int((card.winners >= 0).sum()),
+            "free_running_games_parted": int(parted.sum()),
+            "free_running_results_equal": bool(
+                all((getattr(card, f) == getattr(free, f)).all()
+                    for f in ("done", "winners", "draws")))}
+
+
+def phase_search_held(dev, boards=None):
+    """Every planner, the distillation collector and update and an arena
+    line-up on the card against the same calls on CPU tensors, with the same
+    draws.  ``boards`` (default ``SEARCH_HELD_BOARDS``): ``"kernel"`` boards
+    for what launches a kernel of the port, ``"plane"`` for the plane
+    engine's planners."""
+    import copy
+
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.learner.distill import (
+        collect_search_rollout,
+        distill_init,
+        distill_update,
+    )
+    from pomcpp_tpu_torch.search import (
+        lookahead_moves,
+        mcts_moves,
+        mcts_moves_chunk,
+    )
+    from pomcpp_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    boards = boards or SEARCH_HELD_BOARDS
+    bk, bp = boards["kernel"], boards["plane"]
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    es = learn_held_start(bk, 81)
+    gen = torch.Generator().manual_seed(82)
+    res = {"boards": dict(boards)}
+
+    d = tree_draws(gen, bk, **HELD_CHUNK)
+    plain = mcts_moves_chunk(es.game, 0, draws=d, device=cpu, **HELD_CHUNK)
+    before = dict(_ext.LAUNCHES)
+    card = mcts_moves_chunk(es.game, 0, draws=d, device=dev, **HELD_CHUNK)
+    got = launched_since(before)
+    want = HELD_CHUNK["n_sim"] * (HELD_CHUNK["max_tree_depth"] + 1)
+    if dev.type == "cuda" and got != {"rollout_chunk_kernel": want}:
+        raise AssertionError(f"[search] held mcts_moves_chunk launched {got}, "
+                             f"expected {want} rollout_chunk_kernel")
+    expect_search_equal("mcts_moves_chunk", card, plain)
+    res["mcts_moves_chunk"] = {"boards": bk, **HELD_CHUNK, "launches": got,
+                               "root_q_values": sorted(
+                                   set(plain[2].flatten().tolist()))[:8]}
+
+    cs = learn_held_start(bp, 85).game
+    d = tree_draws(gen, bp, **HELD_PLANE)
+    plain = mcts_moves(cs, 2, draws=d, device=cpu, **HELD_PLANE)
+    expect_search_equal("mcts_moves", mcts_moves(cs, 2, draws=d, device=dev,
+                                                 **HELD_PLANE), plain)
+    depth, n_play = HELD_PLANE["depth"], 4
+    d = {"others": torch.randint(0, 6, (bp, 6, 4), generator=gen,
+                                 dtype=torch.int32),
+         "playout": torch.randint(0, 6, (depth, bp, 6, n_play, 4),
+                                  generator=gen, dtype=torch.int32)}
+    mv_p, vals_p = lookahead_moves(cs, 3, depth=depth, n_playouts=n_play,
+                                   draws=d, device=cpu)
+    mv_c, vals_c = lookahead_moves(cs, 3, depth=depth, n_playouts=n_play,
+                                   draws=d, device=dev)
+    if not (torch.equal(mv_c.cpu(), mv_p) and torch.equal(vals_c.cpu(),
+                                                          vals_p)):
+        raise AssertionError("[search] held lookahead_moves differs")
+
+    ts_cpu = restore_checkpoint(AZ_CKPT, distill_init(0, az_cfg(), cpu))
+    model_card = copy.deepcopy(ts_cpu.model).to(dev)
+    res["mcts_moves_net"] = held_net_search(dev, cs, gen, ts_cpu.model,
+                                            model_card)
+
+    cfg = az_cfg(**HELD_COLLECT)
+    steps = cfg.rollout_len
+    draws = [{"search": [tree_draws(gen, bk, cfg.n_sim, cfg.depth,
+                                    cfg.max_tree_depth) for _ in range(4)],
+              "uniforms": torch.rand((bk, 4, 6), generator=gen)}
+             for _ in range(steps)]
+    fresh = [random_cell_state(bk, generator=gen, device="cpu")
+             for _ in range(steps)]
+    plain = collect_search_rollout(es, cfg, None, draws=draws, fresh=fresh,
+                                   device=cpu)
+    before = dict(_ext.LAUNCHES)
+    card = collect_search_rollout(es, cfg, None, draws=draws, fresh=fresh,
+                                  device=dev)
+    got = launched_since(before)
+    want = {"rollout_chunk_kernel": steps * 4 * cfg.n_sim
+            * (cfg.max_tree_depth + 1), "fused_env_step_kernel": steps}
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"[search] held collect launched {got}, "
+                             f"expected {want}")
+    expect_env_equal("[search] held collect final env", card[0], plain[0])
+    for name, a, b in zip(("feats", "probs", "value_t", "weight"), card[1:],
+                          plain[1:]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"[search] held collect: {name} differs")
+    res["collect"] = {"boards": bk, **HELD_COLLECT, "launches": got,
+                      "masked_rows": int((plain[4] == 0).sum()),
+                      "resets": int((plain[0].game.timestep < steps).sum())}
+
+    # One update from the checkpoint's weights and Adam state, the same
+    # rows and permutation.
+    flat = tuple(x.reshape((-1,) + x.shape[3:]) for x in plain[1:])
+    perm = torch.randperm(flat[0].shape[0], generator=gen)
+    out = []
+    for d_ in (cpu, dev):
+        ts = restore_checkpoint(AZ_CKPT, distill_init(0, cfg, d_))
+        start = [p.detach().clone() for p in ts.model.parameters()]
+        ts, metrics = distill_update(ts, tuple(x.to(d_) for x in flat), cfg,
+                                     perm)
+        out.append((float(metrics["loss"]),
+                    [p.detach() - q for p, q in zip(ts.model.parameters(),
+                                                    start)]))
+    (loss_cpu, d_cpu), (loss_card, d_card) = out
+    err = {"loss": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "update": max(rel_l2(a, b) for a, b in zip(d_cpu, d_card))}
+    for k in err:
+        if err[k] > LEARN_TOL[k]:
+            raise AssertionError(f"[search] held update: {k} differs by "
+                                 f"{err[k]}")
+    res["update"] = {"rows": len(flat[0]),
+                     "minibatches": cfg.num_minibatches,
+                     "losses": [loss_card, loss_cpu], **err}
+    res["arena"] = held_arena(dev, ts_cpu.model, model_card,
+                              learn_held_start(bk, 87))
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[search] held, card == CPU: mcts_moves_chunk ({bk} boards, "
+        f"launches {res['mcts_moves_chunk']['launches']}), the collector "
+        f"({bk} boards, launches {res['collect']['launches']}) and the "
+        f"arena ({bk} games) bit for bit, mcts_moves and lookahead_moves "
+        f"({bp} boards) bit for bit; {json.dumps(res)}")
+    return res
+
+
+class PhaseEvents:
+    """CUDA events around every call of the named module functions (the
+    module's own attribute is wrapped, so callers inside it are timed)."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.pairs = module, names, {}
+
+    def __enter__(self):
+        import torch
+
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+
+        def wrap(name, fn):
+            def timed(*a, **k):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = fn(*a, **k)
+                ev[1].record()
+                self.pairs.setdefault(name, []).append(ev)
+                return out
+            return timed
+
+        for n, fn in self.saved.items():
+            setattr(self.module, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+    def ms(self) -> dict:
+        return {n: sum(a.elapsed_time(b) for a, b in ev)
+                for n, ev in self.pairs.items()}
+
+
+def az_iteration(ts, es, cfg, expect=None):
+    """One ``az_train_step`` timed on the host clock (the metrics' host
+    fetch inside the window) and split by CUDA events into search
+    (``distill._plan``), features + env (the rest of the collect) and
+    update (``distill.distill_update``)."""
+    import math
+
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.learner import distill
+
+    before = dict(_ext.LAUNCHES)
+    whole = Timer()
+    with PhaseEvents(distill, ("_plan", "distill_update")) as ev:
+        t0 = time.perf_counter()
+        with whole:
+            ts, es, metrics = distill.az_train_step(ts, es, cfg)
+        m = {k: float(v) for k, v in metrics.items()}
+        sec = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    got = launched_since(before)
+    if expect is not None and got != expect:
+        raise AssertionError(f"[search] an iteration launched {got}, "
+                             f"expected {expect}")
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"[search] metrics not finite: {m}")
+    ms = ev.ms()
+    total = whole.ms()
+    split = {"search_ms": ms["_plan"], "update_ms": ms["distill_update"],
+             "features_env_ms": total - ms["_plan"] - ms["distill_update"],
+             "iteration_device_clock_ms": total}
+    return ts, es, sec, m, split, got
+
+
+def az_run(name, cfg, ts, timed, warm, expect, seed):
+    """``warm`` + ``timed`` full-width ``az_train_step`` iterations at
+    ``AZ_BATCH`` boards: env and search steps per second (the JAX script's
+    formulas), the time split, launches, peak memory above what was held
+    before."""
+    import torch
+
+    from pomcpp_tpu_torch.env.environment import env_reset
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    es = env_reset(seed, AZ_BATCH)
+    rows = []
+    for i in range(warm + timed):
+        ts, es, sec, m, split, got = az_iteration(ts, es, cfg, expect)
+        if i >= warm:
+            rows.append((sec, m, split, got))
+    steps = AZ_BATCH * cfg.rollout_len
+    # Every row of the rollout goes through one forward and backward pass.
+    flop = update_flop_per_row(ts.model) * steps * 4
+    res = {
+        "boards": AZ_BATCH, "rollout": cfg.rollout_len, "n_sim": cfg.n_sim,
+        "depth": cfg.depth, "max_tree_depth": cfg.max_tree_depth,
+        "guided": cfg.guided, "warm_up_iterations": warm,
+        "iter_s": [r[0] for r in rows],
+        "env_steps_per_s": [steps / r[0] for r in rows],
+        "search_steps_per_s": [steps * 4 * cfg.n_sim * (cfg.max_tree_depth
+                                                        + cfg.depth) / r[0]
+                               for r in rows],
+        "split_ms": [r[2] for r in rows],
+        "update_flop": flop,
+        "update_tflop_per_s": [flop / r[2]["update_ms"] / 1e9 for r in rows],
+        "launches_per_iter": rows[-1][3],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated() - held_before,
+        "held_before_bytes": held_before,
+        "metrics_last": rows[-1][1],
+    }
+    log(f"[search] {name}: {json.dumps(res)}")
+    return ts, res
+
+
+def search_profile_child() -> dict:
+    """One env step of the unguided and of the guided collector (with
+    ``PROFILE_SIMS`` simulations) at full width under ``torch.profiler``, in
+    a child process of its own (this run's earlier phases already opened two
+    sessions): kernels and copies per env step and per simulation, device
+    time and the idle share (device time over the wall time of the same
+    step run without the profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pomcpp_tpu_torch.env.environment import env_reset
+    from pomcpp_tpu_torch.learner.distill import (
+        collect_search_rollout,
+        distill_init,
+    )
+    from pomcpp_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    out = {}
+    for name, guided in (("unguided", False), ("guided", True)):
+        cfg = az_cfg(rollout_len=1, guided=guided, n_sim=PROFILE_SIMS[name])
+        ts = distill_init(5, cfg)
+        if guided:
+            ts = restore_checkpoint(AZ_CKPT, ts)
+        es = env_reset(6, AZ_BATCH)
+
+        def run():
+            collect_search_rollout(es, cfg, ts.gen, ts.model)
+            torch.cuda.synchronize()
+
+        run()
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events:
+            raise RuntimeError(f"[search] torch.profiler recorded no device "
+                               f"activity over the {name} env step")
+        device = sum(e.device_time_total for e in events) / 1e6
+        top = sorted(events, key=lambda e: -e.device_time_total)[:6]
+        out[name] = {"n_sim": cfg.n_sim,
+                     "wall_ms_per_env_step": wall * 1e3,
+                     "device_ms_per_env_step": device * 1e3,
+                     "kernels_per_env_step": sum(e.count for e in events),
+                     "kernels_per_sim": sum(e.count for e in events)
+                     / (4 * cfg.n_sim),
+                     "idle_share": 1 - device / wall,
+                     "top_device_us": {e.key[:60]: e.device_time_total
+                                       for e in top}}
+    return out
+
+
+def search_profile() -> dict:
+    """``search_profile_child`` in a child process; its JSON line."""
+    proc = subprocess.run([sys.executable, __file__, "--search-profile-child"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"[search] the profiling child failed: "
+                           f"{proc.stderr[-2000:]}")
+    line = [s for s in proc.stdout.splitlines()
+            if s.startswith("SEARCH_PROFILE ")][-1]
+    return json.loads(line.split(" ", 1)[1])
+
+
+def plane_host_reads(dev) -> float:
+    """Device-to-host reads a plane-engine step makes (``cellular_step``'s
+    chain, revert and ray loops), counted by
+    ``set_sync_debug_mode("warn")`` over 8 steps of 1024 boards that have
+    taken 12 random steps (bombs ticking)."""
+    import warnings
+
+    import torch
+
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.cellular import cellular_step
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cs = random_cell_state(AZ_BATCH, generator=gen)
+    moves = [torch.randint(0, 6, (AZ_BATCH, 4), generator=gen, device=dev,
+                           dtype=torch.int32) for _ in range(20)]
+    for mv in moves[:12]:
+        cs = cellular_step(cs, mv)
+    moves = moves[12:]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for mv in moves:
+                cs = cellular_step(cs, mv)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught) / len(moves)
+
+
+def arena_run(names, games, steps, nets, seed, search_kwargs=None):
+    import torch
+
+    from pomcpp_tpu_torch.arena import play_games
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = play_games(names, games, steps, nets=nets, seed=seed,
+                     search_kwargs=search_kwargs)
+    sec = time.perf_counter() - t0
+    finished = int(res.done.sum())
+    won0 = int((res.done & ~res.draws & (res.winners == 0)).sum())
+    return {"games": games, "steps_played": res.steps, "seconds": sec,
+            "game_steps_per_s": games * res.steps / sec,
+            "finished": finished, "draws": int(res.draws.sum()),
+            "seat0_wins": won0, "seat0_share": won0 / max(finished, 1)}
+
+
+def phase_search_main(dev):
+    """The search path at full width: no host read in the chunk search's
+    collector, train_az.py's defaults unguided (fresh net) and guided
+    (``artifacts/ppo_randseat``), the profile of one env step of each, and
+    the arena."""
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.env.environment import env_reset
+    from pomcpp_tpu_torch.learner.distill import (
+        collect_search_rollout,
+        distill_init,
+    )
+    from pomcpp_tpu_torch.learner.ppo import PPOConfig, ppo_init
+    from pomcpp_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    t0 = time.perf_counter()
+    cfg = az_cfg(rollout_len=1, n_sim=2, depth=2, max_tree_depth=2)
+    es = env_reset(6, 256)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    no_host_read(lambda: collect_search_rollout(es, cfg, gen), calls=1)
+    log("[search] collect_search_rollout, unguided (mcts_moves_chunk + the "
+        "fused env step): no host read (set_sync_debug_mode('error'))")
+    reads = plane_host_reads(dev)
+    log(f"[search] the plane engine (cellular_step, uncapped) reads the "
+        f"device {reads:.2f} times a step at {AZ_BATCH} boards")
+
+    _ext.reset_launches()
+    cfg = az_cfg()
+    per_iter = {"rollout_chunk_kernel": cfg.rollout_len * 4 * cfg.n_sim
+                * (cfg.max_tree_depth + 1),
+                "fused_env_step_kernel": cfg.rollout_len}
+    _, unguided = az_run("unguided (train_az.py defaults, fresh net)", cfg,
+                         distill_init(11), AZ_UNGUIDED_TIMED, 1, per_iter,
+                         12)
+    cfg = az_cfg(guided=True, rollout_len=AZ_GUIDED_ROLLOUT)
+    ts = restore_checkpoint(AZ_CKPT, distill_init(13, cfg))
+    _, guided = az_run(f"guided (--guided --resume {AZ_CKPT}, rollout "
+                       f"{AZ_GUIDED_ROLLOUT})", cfg, ts,
+                       AZ_GUIDED_TIMED, 0,
+                       {"fused_env_step_kernel": cfg.rollout_len}, 14)
+
+    trained = restore_checkpoint(AZ_CKPT, ppo_init(0, PPOConfig())).model
+    fresh = ppo_init(0, PPOConfig()).model
+    lineup = ["ppo", "simple", "simple", "simple"]
+    before = dict(_ext.LAUNCHES)
+    arena = {"checkpoint": arena_run(lineup, ARENA_GAMES, ARENA_STEPS,
+                                     trained, 21),
+             "fresh": arena_run(lineup, ARENA_GAMES, ARENA_STEPS, fresh, 21)}
+    arena_launches = launched_since(before)
+    played = arena["checkpoint"]["steps_played"] + \
+        arena["fresh"]["steps_played"]
+    if arena_launches != {"fsm_act_kernel": played}:
+        raise AssertionError(f"[search] the arena launched {arena_launches}, "
+                             f"expected {played} fsm_act_kernel")
+    log(f"[search] arena {lineup}, {ARENA_GAMES} games x {ARENA_STEPS} "
+        f"steps, {AZ_CKPT} and a fresh net in seat 0 (seed 21): "
+        f"{json.dumps(arena)}")
+    if not arena["checkpoint"]["seat0_share"] > arena["fresh"]["seat0_share"]:
+        raise AssertionError(f"[search] the checkpoint does not beat a fresh "
+                             f"net: {arena}")
+    az = AZ_ARENA
+    azmcts = arena_run(["azmcts", "simple", "simple", "simple"], az["games"],
+                       az["steps"], trained, 22, {"n_sim": az["sims"]})
+    azmcts["decisions_per_s"] = az["games"] * azmcts["steps_played"] \
+        / azmcts["seconds"]
+    log(f"[search] arena azmcts (n_sim {az['sims']}, tree depth 8) vs three "
+        f"SimpleAgents, {az['games']} games, capped at {az['steps']} steps: "
+        f"{json.dumps(azmcts)}")
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    t1 = time.perf_counter()
+    prof = search_profile()
+    log(f"[search] one env step under torch.profiler (child process, "
+        f"{time.perf_counter() - t1:.1f} s): {json.dumps(prof)}")
+    res = {"unguided": unguided, "guided": guided, "arena": arena,
+           "azmcts": azmcts, "profile": prof, "plane_host_reads": reads,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    return res
+
+
+def phase_search(dev):
+    t0 = time.perf_counter()
+    held = phase_search_held(dev)
+    res = phase_search_main(dev)
+    res["held"] = held
+    log(f"[search] phase took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def bound_ms(board_steps: int, bytes_moved: int) -> tuple[float, str]:
     """Least time: bytes over HBM rate vs one 32-bit op per state value per
     board-step (7 planes x 121 cells) over the 32-bit peak."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = board_steps * 7 * 121 / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+HELD_PHASES = {"step": phase_step, "fsm": phase_fsm, "chunk": phase_chunk,
+               "env": phase_env_held, "probes": phase_probes_held,
+               "learn": phase_learn, "search": phase_search}
 
 
 def main() -> int:
@@ -1949,6 +2595,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    if "--search-profile-child" in sys.argv[1:]:
+        print("SEARCH_PROFILE " + json.dumps(search_profile_child()))
+        return 0
     smi = nvidia_smi_line()
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -1958,9 +2607,7 @@ def main() -> int:
     if only:
         # A partial run for development: the named held phases, no result.
         for name in only[0]:
-            {"step": phase_step, "fsm": phase_fsm, "chunk": phase_chunk,
-             "env": phase_env_held, "probes": phase_probes_held,
-             "learn": phase_learn}[name](dev)
+            HELD_PHASES[name](dev)
         torch.cuda.synchronize()
         log("partial run: no result line")
         return 4
@@ -1981,10 +2628,12 @@ def main() -> int:
     phase_probes_held(dev)
     probe_rows, probe_launches = phase_probes_main(dev)
     learn = phase_learn(dev)
+    search = phase_search(dev)
     torch.cuda.synchronize()
 
     paths = {"main": main_res["launches"], "env": env_res["launches"],
-             "probes": probe_launches, "learn": learn["launches"]}
+             "probes": probe_launches, "learn": learn["launches"],
+             "search": search["launches"]}
 
     def launches(name):
         by_path = {path: counts[name] for path, counts in paths.items()

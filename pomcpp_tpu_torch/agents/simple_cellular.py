@@ -4,7 +4,9 @@ Counterpart of ``pomcpp_tpu.agents.simple_cellular``: the decision cascade
 of the reference SimpleAgent (simple_agent.cpp:51-115) computed with the
 plane toolkit.  ``simple_agent_cell_joint(cs, asts, rands)`` is the JAX
 module's ``simple_agent_cell_act`` vmapped over the four agents, with the
-per-agent rand draws passed in.
+per-agent rand draws passed in; ``simple_agent_cell_act`` /
+``simple_agent_cell_policy`` are the JAX module's one-agent act and
+policy, over a batch of boards.
 
 Dead agents follow the chunk kernel's rule (``pallas_fsm.fsm_block``), not
 the JAX toolkit's: their BFS sources are pruned, so they never flee or
@@ -134,3 +136,35 @@ def simple_agent_cell_joint(cs: CellState, asts: SimpleAgentState, rands,
         mq_slots=new_slots.to(I32),
     )
     return move, consumed, asts2
+
+
+def simple_agent_cell_act(cs: CellState, agent_id: int,
+                          ast: SimpleAgentState, rand, dmap=None):
+    """One decision of agent ``agent_id`` on every board.
+
+    ``ast``: that agent's state, leading axis [B]; ``rand``: i32[B], its
+    next intDist(0,4) draw.  Returns ``(moves i32[B], consumed bool[B],
+    ast')``: the joint act's column ``agent_id`` (the other agents'
+    decisions are computed and dropped).
+    """
+    b = cs.board.shape[0]
+    rand = torch.as_tensor(rand).to(device=cs.board.device, dtype=I32)
+
+    def four(t):
+        return t[:, None].expand((b, 4) + tuple(t.shape[1:]))
+
+    asts = SimpleAgentState(*map(four, ast))
+    moves, consumed, asts2 = simple_agent_cell_joint(
+        cs, asts, four(rand), dmap)
+    return (moves[:, agent_id], consumed[:, agent_id],
+            SimpleAgentState(*(t[:, agent_id] for t in asts2)))
+
+
+def simple_agent_cell_policy(generator, cs: CellState, agent_id: int,
+                             ast: SimpleAgentState):
+    """Stateful one-agent policy: draws the rand on ``generator`` ->
+    ``(moves i32[B], ast')``."""
+    rand = torch.randint(0, 5, cs.board.shape[:1], generator=generator,
+                         device=generator.device, dtype=I32)
+    move, _, ast2 = simple_agent_cell_act(cs, agent_id, ast, rand)
+    return move, ast2

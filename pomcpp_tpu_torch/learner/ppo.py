@@ -144,11 +144,17 @@ def _features(game, slots, view_range: int) -> torch.Tensor:
     return feats[:, list(slots)]
 
 
-def sample_categorical(gen: torch.Generator, logits: torch.Tensor):
+def sample_categorical(gen: torch.Generator, logits: torch.Tensor,
+                       uniforms=None):
     """One draw per row of ``logits`` by Gumbel-max, as
-    ``jax.random.categorical`` draws (uniforms in [tiny, 1))."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device,
-                   dtype=logits.dtype)
+    ``jax.random.categorical`` draws (uniforms in [tiny, 1)).  ``uniforms``
+    (the shape of ``logits``) replaces the draw."""
+    if uniforms is None:
+        u = torch.rand(logits.shape, generator=gen, device=logits.device,
+                       dtype=logits.dtype)
+    else:
+        u = torch.as_tensor(uniforms).to(device=logits.device,
+                                         dtype=logits.dtype)
     u = u.clamp_min(torch.finfo(logits.dtype).tiny)
     return (logits - torch.log(-torch.log(u))).argmax(-1)
 

@@ -250,3 +250,16 @@ def test_learner_collect_and_update_match_plain(cuda):
     err = chip_smoke.phase_learn_held(cuda, {"simple": 256, "selfplay": 256})
     assert all(err[k] <= chip_smoke.LEARN_TOL[k] for k in err)
 
+
+
+def test_search_distill_and_arena_match_plain(cuda):
+    """``chip_smoke.py``'s held search comparisons at 64 boards: the chunk
+    search (exact ``rollout_chunk_kernel`` launches), the plane engine's
+    planners, the unguided collector and an arena line-up on the card equal
+    their CPU runs bit for bit; ``mcts_moves_net`` and one update within the
+    stated tolerances."""
+    res = chip_smoke.phase_search_held(cuda, {"kernel": 64, "plane": 64})
+    assert res["mcts_moves_net"]["root_q_err"] <= chip_smoke.NET_Q_TOL
+    assert res["update"]["update"] <= chip_smoke.LEARN_TOL["update"]
+    assert res["collect"]["launches"]["fused_env_step_kernel"] == \
+        chip_smoke.HELD_COLLECT["rollout_len"]

@@ -115,6 +115,51 @@ def test_learner_entry_points_need_cuda(monkeypatch):
     assert ts2.update_count == 1 and set(metrics) >= {"loss", "episodes"}
 
 
+def test_search_arena_and_distill_entry_points_need_cuda(monkeypatch):
+    """The planners, ``az_train_step``, ``play_games`` and the three
+    ``python -m`` mains run on the card unless the caller names the CPU."""
+    from pomcpp_tpu_torch import arena, evaluate, league, search, train_az
+    from pomcpp_tpu_torch.env.environment import env_reset
+    from pomcpp_tpu_torch.learner import distill
+
+    cs = random_cell_state(2, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    cfg = distill.DistillConfig(rollout_len=1, n_sim=2, depth=2,
+                                max_tree_depth=2)
+    ts = distill.distill_init(0, cfg, "cpu")
+    es = env_reset(1, 2, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: search.playout_value(cs, 0, gen, depth=2),
+        lambda: search.lookahead_moves(cs, 0, gen, depth=2, n_playouts=2),
+        lambda: search.mcts_moves(cs, 0, gen, n_sim=2, depth=2,
+                                  max_tree_depth=2),
+        lambda: search.mcts_moves_net(cs, 0, ts.model, gen, n_sim=2,
+                                      max_tree_depth=2),
+        lambda: search.mcts_moves_chunk(cs, 0, gen, n_sim=2, depth=2,
+                                        max_tree_depth=2),
+        lambda: distill.distill_init(0, cfg),
+        lambda: distill.az_train_step(ts, es, cfg),
+        lambda: distill.collect_search_rollout(es, cfg, gen),
+        lambda: arena.play_games(["random"] * 4, 2, 2),
+        lambda: train_az.main(["--batch", "2", "--iters", "1"]),
+        lambda: evaluate.main(["--games", "2", "--steps", "2"]),
+        lambda: league.main(["--rounds", "1", "--games", "2"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="model is on cpu"):
+        distill.az_train_step(ts, es, cfg, device="cuda")
+
+
+def test_chip_smoke_knows_its_phases():
+    """``--only=`` takes every held phase, the search phase included."""
+    assert set(chip_smoke.HELD_PHASES) == {"step", "fsm", "chunk", "env",
+                                           "probes", "learn", "search"}
+
+
 @pytest.mark.parametrize("make", ["empty_cell_state", "simple_agent_init"])
 def test_state_constructors_default_to_the_card(monkeypatch, make):
     """Like every entry point, the two state constructors put their state
