@@ -73,9 +73,13 @@ Phases (any failure exits non-zero before the result line):
               its plain version, bit for bit, on seeded inputs at a small
               loop count (and with ``rows=32``, and on a ragged row count),
               ``dot`` on random floats within its stated tolerance, then
-              ``probes.run_report`` at the scripts' sizes (launch counts
-              reset before and read after), then every pattern's plain
-              version at those sizes, timed and compared again.
+              ``probes.run_report`` at the scripts' sizes (device time from
+              a cold L2, each pattern beside its bound from the card's
+              rates, ``device.card_rates``; launch counts reset before and
+              read after), then every pattern's plain version at those
+              sizes, timed and compared again, and the closed form of each
+              pattern whose loop folds, as one PyTorch call; the phase
+              fails if a pattern reads above 100% of its bound.
 
 9. learn   -- the PPO learner.  Held, card against the same call on CPU
               tensors at the full-width runs' board counts, 8 steps with
@@ -177,9 +181,8 @@ BOARDS = 16384          # bench.py's batch
 CHUNK = 256             # bench.py's steps per launch
 MAIN_CHUNKS = 2         # chunks per policy on the main path
 MAIN_STEPS = 4          # single fused steps on the main path
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 memory rate
-OPS_PER_S = 67e12           # H100 SXM 32-bit non-tensor peak
-TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor-core dense peak
+# The card's rates (memory; 32-bit instructions: 128 lanes x SMs x the
+# maximum SM clock, read from the card) are pomcpp_tpu_torch.device.card_rates.
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor-core dense peak
 STATE_BYTES = 7 * 121 * 4 + 7 * 4 * 4   # one board's 14 state arrays, int32
 # One board's CellState in its own dtypes (bool as a byte) and the rest of
@@ -390,6 +393,9 @@ KERNEL_ENTRIES = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
                   ("fused_step_kernelILb1", "fused_env_step_kernel"),
                   ("fused_step_kernelILb0", "fused_step_kernel"),
                   ("env_merge_kernel", "env_merge_kernel"),
+                  ("probe_elem_dense_kernel", "probe_elem_kernel (warp)"),
+                  ("probe_shift_warp_kernel", "probe_shift_kernel (warp)"),
+                  ("probe_shift_agents_kernel", "probe_shift_kernel (warp)"),
                   ("probe_elem_kernel", "probe_elem_kernel"),
                   ("probe_shift_kernel", "probe_shift_kernel"),
                   ("probe_reduce_", "probe_reduce_kernel"),
@@ -1231,6 +1237,7 @@ def phase_env_timing(es):
     the plain version on the card."""
     import torch
 
+    from pomcpp_tpu_torch.device import HBM_BYTES_PER_S
     from pomcpp_tpu_torch.engine.fused_step import fused_step_plain
     from pomcpp_tpu_torch.env import environment as env
 
@@ -1410,7 +1417,7 @@ def phase_probes_held(dev):
     n = 0
     for i, p in enumerate(probes.PATTERNS):
         cases = [(PROBE_HELD_ROWS, 128)]
-        if p.script == "sublane":
+        if p.script == "sublane" or p.family in ("elem", "shift"):
             cases.append((PROBE_HELD_ROWS, 32))
         if p.op not in probes.TILE_OPS:
             cases.append((130, 128))       # a ragged last CTA of four warps
@@ -1462,6 +1469,7 @@ def phase_probes_main(dev):
     import torch
 
     from pomcpp_tpu_torch import _ext, probes
+    from pomcpp_tpu_torch.device import card_rates, time_device
 
     _ext.reset_launches()
     report = probes.run_report(n_rows=PROBE_ROWS,
@@ -1471,6 +1479,7 @@ def phase_probes_main(dev):
     expect_launched(launches, PROBE_KERNELS, "the probes' path")
 
     ms = {(probes.label(p), layout): t for p, layout, t in report}
+    rates = card_rates()
     rows = []
     for p in probes.PATTERNS:
         inputs = probes.pattern_inputs(p, PROBE_ROWS, dev)
@@ -1481,38 +1490,50 @@ def phase_probes_main(dev):
             got = probes.run_pattern(p, inputs, layout=layout)
             err = max(err, probe_outputs_equal(
                 f"probe {probes.label(p)} {layout} at K={p.k}", got, want))
-        ops, moved = probes.work(p, PROBE_ROWS)
-        t_ops, t_bytes = ops / OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
-        simt_ms = None
-        if p.op == "dot":   # the tensor-core passes the kernel issues
-            simt_ms = t_ops
-            t_ops = probes.tensor_ops(p, PROBE_ROWS) / TF32_OPS_PER_S * 1e3
-        library = None
+        bound, term = probes.bound(p, PROBE_ROWS, rates)
+        simt_ms = library = None
         if p.op == "dot":
+            # The f32 SIMT chain it replaced, and one torch.matmul a product.
+            simt_ms = probes.work(p, PROBE_ROWS)[0] / rates.issue * 1e3
             x, w = inputs["x"], inputs["w"]
             torch.matmul(x, w)
             with Timer() as tl:
                 for _ in range(p.k * 32):
                     x = torch.matmul(x, w)
             library = tl.ms()
+        elif p.closed:      # one PyTorch call computes the closed form
+            x, form = inputs["x"], probes.CLOSED_FORMS[p.op]
+            probe_outputs_equal(f"closed form of {probes.label(p)}",
+                                form(x, p.k), want)
+            library = time_device(lambda: form(x, p.k), dev)
         rows.append({
             "pattern": probes.label(p),
             "kernel": probes.kernel_of(p),
             "cta_ms": ms[probes.label(p), "cta"],
             "warp_ms": ms[probes.label(p), "warp"],
             "plain_ms": tp.ms(), "max_abs_err": err,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound, "bound_by": term,
             "library_ms": library,
             **({"simt_bound_ms": simt_ms} if simt_ms else {}),
         })
-        log(f"[probes] {probes.label(p):28s} cta {rows[-1]['cta_ms']:9.3f} ms, "
-            f"warp {rows[-1]['warp_ms']:9.3f} ms, plain {tp.ms():9.3f} ms, "
+        log(f"[probes] {probes.label(p):28s} cta {rows[-1]['cta_ms']:9.4f} ms, "
+            f"warp {rows[-1]['warp_ms']:9.4f} ms, plain {tp.ms():9.3f} ms, "
             f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})"
             + (f", torch.matmul chain {library:.3f} ms, f32 SIMT bound "
-               f"{simt_ms:.2f} ms" if library else "")
+               f"{simt_ms:.2f} ms" if simt_ms else "")
+            + (f", its closed form in one PyTorch call {library:.4f} ms"
+               if p.closed else "")
             + f": kernel == plain at K={p.k}")
     torch.cuda.synchronize()
+    # A bound is the least time the card could take: a pattern faster than
+    # its bound has a count that is wrong, and is recounted, never clamped.
+    over = [f"{r['pattern']} {min(r['cta_ms'], r['warp_ms']):.4f} ms < "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            for r in rows if min(r["cta_ms"], r["warp_ms"]) < r["bound_ms"]]
+    if over:
+        raise AssertionError("probe rows above 100% of their bound: "
+                             + "; ".join(over))
+    log("[probes] every pattern at or below 100% of its bound")
     return rows, launches
 
 
@@ -2569,11 +2590,12 @@ def phase_search(dev):
     return res
 
 
-def bound_ms(board_steps: int, bytes_moved: int) -> tuple[float, str]:
-    """Least time: bytes over HBM rate vs one 32-bit op per state value per
-    board-step (7 planes x 121 cells) over the 32-bit peak."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = board_steps * 7 * 121 / OPS_PER_S * 1e3
+def bound_ms(board_steps: int, bytes_moved: int, rates) -> tuple[float, str]:
+    """Least time: bytes over the memory rate vs one 32-bit instruction per
+    state value per board-step (7 planes x 121 cells) over the issue rate
+    (``rates``: ``pomcpp_tpu_torch.device.card_rates()``)."""
+    t_bytes = bytes_moved / rates.hbm * 1e3
+    t_ops = board_steps * 7 * 121 / rates.issue * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2600,6 +2622,10 @@ def main() -> int:
         return 0
     smi = nvidia_smi_line()
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    from pomcpp_tpu_torch.device import card_rates, rates_line
+
+    rates = card_rates()
+    log(f"[device] rates: {rates_line(rates)}")
 
     regs = phase_build()
     only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
@@ -2625,8 +2651,10 @@ def main() -> int:
     phase_env_held(dev)
     env_res = phase_env_main(dev)
     env_timing = phase_env_timing(env_res["state"])
+    t0 = time.perf_counter()
     phase_probes_held(dev)
     probe_rows, probe_launches = phase_probes_main(dev)
+    log(f"[probes] phase took {time.perf_counter() - t0:.1f} s")
     learn = phase_learn(dev)
     search = phase_search(dev)
     torch.cuda.synchronize()
@@ -2641,15 +2669,17 @@ def main() -> int:
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     main_ms = {pol: sum(v) / len(v) for pol, v in main_res["chunk_ms"].items()}
-    chunk_bound, chunk_by = bound_ms(BOARDS * CHUNK, BOARDS * 2 * STATE_BYTES)
+    chunk_bound, chunk_by = bound_ms(BOARDS * CHUNK, BOARDS * 2 * STATE_BYTES,
+                                     rates)
     step_bound, step_by = bound_ms(
-        BOARDS, BOARDS * (2 * GAME_BYTES + MOVE_BYTES))
+        BOARDS, BOARDS * (2 * GAME_BYTES + MOVE_BYTES), rates)
     env_bound, env_by = bound_ms(
-        BOARDS, BOARDS * (2 * (GAME_BYTES + ENV_BYTES) + MOVE_BYTES))
-    merge_bound, merge_by = bound_ms(BOARDS, env_timing["merge_rate"]["bytes"])
+        BOARDS, BOARDS * (2 * (GAME_BYTES + ENV_BYTES) + MOVE_BYTES), rates)
+    merge_bound, merge_by = bound_ms(BOARDS, env_timing["merge_rate"]["bytes"],
+                                     rates)
     simple_bound, simple_by = bound_ms(
-        BOARDS * CHUNK, BOARDS * 2 * (STATE_BYTES + FSM_BYTES))
-    act_bound, act_by = bound_ms(BOARDS, BOARDS * ACT_BYTES)
+        BOARDS * CHUNK, BOARDS * 2 * (STATE_BYTES + FSM_BYTES), rates)
+    act_bound, act_by = bound_ms(BOARDS, BOARDS * ACT_BYTES, rates)
     kernels = [
         {
             "name": "rollout_chunk_kernel", "route": "cuda",
@@ -2756,18 +2786,27 @@ def main() -> int:
                                      "microbench_reductions.py:118"),
              "probe_dot_tc_kernel": ("sublane.dot", "134 (_kernel_dot)"),
              "probe_dot_kernel": ("sublane.dotred", "206 (_kernel_dotred)")}
+    # "ms" is the layout="cta" kernel's time and "warp_layout_ms" the
+    # layout="warp" kernel's, in every probe row; the elem and shift
+    # families' warp designs live in their own header.
+    warp_sources = {"probe_elem_kernel": "probe_warp.cuh",
+                    "probe_shift_kernel": "probe_warp.cuh"}
     for name, (lead, where) in lines.items():
         mine = [r for r in probe_rows if r["kernel"] == name]
         head = next(r for r in mine if r["pattern"] == lead)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pomcpp_tpu_torch/csrc/probes.cu",
+            **({"warp_layout_source": "pomcpp_tpu_torch/csrc/"
+                + warp_sources[name]} if name in warp_sources else {}),
             "replaces": f"scripts/microbench_sublane.py:{where}",
             **launches(name),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["cta_ms"], "warp_layout_ms": head["warp_ms"],
             "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": "bytes" if head["bound_by"] == "bytes" else "operations",
+            "bound_term": head["bound_by"],
             "library_ms": head["library_ms"],
             "held_in": ["probes"],
             "shape": f"{lead}: {PROBE_ROWS} rows x 128 lanes, the script's K",
@@ -2775,7 +2814,14 @@ def main() -> int:
                          for r in mine],
         })
     for row in kernels:
-        row.update(regs.get(row["name"], {}))
+        # A probe row's resources are the most of both layouts' kernels; the
+        # elem and shift families' warp designs' own stand beside them.
+        own = dict(regs.get(row["name"], {}))
+        warp = regs.get(f"{row['name']} (warp)")
+        if warp:
+            row["warp_layout_resources"] = warp
+            own = {k: max(v, own.get(k, 0)) for k, v in warp.items()}
+        row.update(own)
     # The chunk kernel's time in this layout beside the time PERF.md holds
     # for the layout it replaced (one board per 128-thread CTA).
     log("[timing] chunk kernel, one board per warp, beside one board per CTA "

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARIES = {
     "kernels": ("fused_step.cu", ("common.cuh", "step_warp.cuh",
                                   "fsm_warp.cuh", "env_warp.cuh")),
-    "probes": ("probes.cu", ()),
+    "probes": ("probes.cu", ("probe_warp.cuh",)),
 }
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ext"
 NVCC_FLAGS = (
@@ -182,22 +182,30 @@ def lib(defines=()) -> ctypes.CDLL:
     return bind_kernels(handle) if fresh else handle
 
 
+def bind_probes(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of ``probes.cu`` (or, in the
+    tests, of the host build of ``probe_warp.cuh``, which has the elem and
+    shift entries only)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    entries = {
+        "pomcpp_probe_elem": [i, i, i, p, p, i, i, i, i, i, p],
+        "pomcpp_probe_shift": [i, i, i, p, p, p, p, i, i, i, i, p],
+        "pomcpp_probe_reduce": [i, i, p, p, p, p, i, i, i, i, p],
+        "pomcpp_probe_dot": [i, i, p, p, p, i, i, i, i, p],
+    }
+    for name, argtypes in entries.items():
+        if hasattr(handle, name):
+            fn = getattr(handle, name)
+            fn.argtypes, fn.restype = argtypes, i
+    handle.pomcpp_probes_error_string.argtypes = [i]
+    handle.pomcpp_probes_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 def probes_lib() -> ctypes.CDLL:
     """The loaded probe kernels (``probes.cu``), built on first call."""
     handle, fresh = _load("probes")
-    if fresh:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        handle.pomcpp_probe_elem.argtypes = [i, i, i, p, p, i, i, i, i, i, p]
-        handle.pomcpp_probe_shift.argtypes = [i, i, i, p, p, p, p, i, i, i, i,
-                                              p]
-        handle.pomcpp_probe_reduce.argtypes = [i, i, p, p, p, p, i, i, i, i, p]
-        handle.pomcpp_probe_dot.argtypes = [i, i, p, p, p, i, i, i, i, p]
-        for fn in (handle.pomcpp_probe_elem, handle.pomcpp_probe_shift,
-                   handle.pomcpp_probe_reduce, handle.pomcpp_probe_dot):
-            fn.restype = i
-        handle.pomcpp_probes_error_string.argtypes = [i]
-        handle.pomcpp_probes_error_string.restype = ctypes.c_char_p
-    return handle
+    return bind_probes(handle) if fresh else handle
 
 
 def check(err: int, error_string) -> None:

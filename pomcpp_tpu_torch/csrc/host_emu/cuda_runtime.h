@@ -15,6 +15,9 @@
 // Between two intrinsics a lane runs alone, far ahead of the others, so a
 // missing __syncwarp() around shared memory shows as a wrong result.
 // CTA-wide barriers are not emulated: a kernel that reaches one aborts.
+// Each lane's shuffles are counted (emu::warp().shuffles, by lane index,
+// summed over every warp run), so a test can hold a kernel to the exchange
+// its design claims.
 #pragma once
 
 #include <ucontext.h>
@@ -69,6 +72,7 @@ struct Warp {
   int tid_base = 0;
   const std::function<void()>* body = nullptr;
   int error = cudaSuccess;
+  unsigned long long shuffles[WARP] = {};  // __shfl*_sync calls, per lane
 };
 
 inline Warp& warp() {
@@ -120,6 +124,7 @@ inline unsigned collective(int kind, unsigned mask, unsigned v, unsigned a) {
   Warp& w = warp();
   const int me = w.cur;
   if (mask != 0xffffffffu) w.error = cudaErrorLaunchFailure;
+  if (kind == K_SHFL || kind == K_UP || kind == K_DOWN) ++w.shuffles[me];
   w.in[me] = v;
   w.aux[me] = a;
   w.kind[me] = kind;

@@ -9,39 +9,39 @@
 //
 //   L_CTA   one row per 128-thread CTA, one cell per thread; neighbour
 //           exchange and reductions go through shared memory and
-//           __syncthreads (the engine kernels' first layout, since retired);
-//   L_WARP  one row per warp, four consecutive cells per thread, four rows
-//           per 128-thread CTA; exchange and reductions go through
-//           __shfl_sync and never touch shared memory or a barrier.
+//           __syncthreads (the engine kernels' first layout, since retired,
+//           kept as an instrument);
+//   L_WARP  the design for the card.  The elem and shift families run the
+//           kernels of probe_warp.cuh: elementwise chains over a dense
+//           element mapping (the row width does not matter), plane rolls
+//           one row per warp with a shuffle only for a value that crosses a
+//           lane's four cells, prefix_or as a warp scan, and the agent
+//           patterns one row per lane.  The reduce and dotred kernels below
+//           hold one row per warp, four consecutive cells per thread, four
+//           rows per 128-thread CTA, and reduce with __shfl_sync.
 //
 // Four kernel families: probe_elem_kernel (elementwise chains),
 // probe_shift_kernel (lane rolls and agent-array rotations),
 // probe_reduce_kernel (row reductions; probe_reduce_tile_kernel for the
 // reductions over a whole 128-row tile), probe_dot_kernel (`dotred`, the
 // one-column f32 products of a row reduction) and probe_dot_tc_kernel
-// (`dot`, the chain of f32 matrix products, on the tensor cores).  `rows` / `tile` restrict the work to the first `rows` rows
-// of every `tile` rows (the other rows are copied), as the sublane script
-// does.  Plain C interface at the bottom; pomcpp_tpu_torch/probes.py binds it.
+// (`dot`, the chain of f32 matrix products, on the tensor cores).  `rows` /
+// `tile` restrict the work to the first `rows` rows of every `tile` rows
+// (the other rows are copied), as the sublane script does.  Plain C
+// interface at the bottom; pomcpp_tpu_torch/probes.py binds it.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "probe_warp.cuh"
+
 namespace pomcpp_probes {
 
-constexpr int LANES = 128;
-constexpr int NT = 128;          // threads per CTA in both row layouts
-constexpr int AGENTS = 4;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int TILE_ROWS = 128;   // rows of a tile reduction
 constexpr int TILE_NT = 1024;    // threads of the tile kernel
 constexpr int TILE_NPT = TILE_ROWS * LANES / TILE_NT;
 
-enum Layout { L_CTA = 0, L_WARP = 1 };
-
-enum ElemOp { E_ELEM = 0, E_CHAIN, E_BASELINE, E_COND_FALSE, E_COND_TRUE, E_WHILE2 };
-enum ShiftOp { S_ROLL = 0, S_ROLL2, S_PUSH, S_PUSH_HOIST, S_PREFIX_OR, S_WHOLE4, S_ROT4,
-               S_COLSLICE };
 enum ReduceOp { R_SUMRED = 0, R_AXIS1_ANY, R_PACKED_SUM, R_MIN_RED4, R_ONEHOT_RD, R_ANY_PLANE,
                 R_ANY4 };
 enum DotOp { D_DOT = 0, D_DOTRED };
@@ -84,27 +84,13 @@ struct Ctx {
   }
 };
 
-// Circular roll along the row: out[c] = in[(c - S) mod 128].
+// Circular roll along the row: out[c] = in[(c - S) mod 128] (L_CTA).
 template <int S, typename T>
 __device__ __forceinline__ void roll(Ctx<L_CTA>& cx, T (&v)[1]) {
   int* b = cx.next();
   b[threadIdx.x] = (int)v[0];
   __syncthreads();
   v[0] = (T)b[(threadIdx.x - S) & (LANES - 1)];
-}
-
-template <int S, typename T>
-__device__ __forceinline__ void roll(Ctx<L_WARP>&, T (&v)[4]) {
-  constexpr int q = S / 4, r = S % 4;
-  const int t = threadIdx.x & 31;
-  T o[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int src = (t - q - (j < r ? 1 : 0)) & 31;
-    o[j] = (T)__shfl_sync(FULL, (int)v[(j - r) & 3], src);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = o[j];
 }
 
 struct OpAdd {
@@ -165,62 +151,14 @@ __device__ __forceinline__ bool row_any(Ctx<L_WARP>&, bool pred) {
 
 // --- Elementwise chains ------------------------------------------------------------
 
-template <typename T>
-struct ChainMask;
-template <>
-struct ChainMask<int32_t> {
-  static constexpr int32_t keep = 0x7E7E, carry = 0x0101;
-};
-template <>
-struct ChainMask<int16_t> {
-  static constexpr int16_t keep = 0x7E7E, carry = 0x0101;
-};
-template <>
-struct ChainMask<int8_t> {   // the constants wrap to the type's width
-  static constexpr int8_t keep = 0x7E, carry = 0x01;
-};
-
+// The elem family in the CTA layout: one row per CTA, one cell per thread,
+// the threads past the row's width idle (pw::probe_elem_dense_kernel is the
+// layout="warp" design).  x: [n_rows, width], width <= 128.
 template <int OP, typename T>
-__device__ __forceinline__ T elem_body(T x, int i) {
-  if constexpr (OP == E_ELEM) {
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      x = x > 3 ? x - 3 : x + 1;
-      x = x ^ 5;
-      x = x + i;
-    }
-  } else if constexpr (OP == E_CHAIN) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      x = (T)((x & ChainMask<T>::keep) | ((T)((unsigned)x + 1u) & ChainMask<T>::carry));
-      x = (T)(x ^ (T)(x >> 7));
-    }
-  } else if constexpr (OP == E_BASELINE) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n) x = (x > 3 ? x - 3 : x + 1) ^ i;
-  } else if constexpr (OP == E_COND_FALSE) {
-    if (i < 0) x = x + 1;
-  } else if constexpr (OP == E_COND_TRUE) {
-    if (i >= 0) x = x + 1;
-  } else if constexpr (OP == E_WHILE2) {
-    for (int c = 0; c < 2; ++c) x = x + 1;
-  }
-  return x;
-}
-
-// Replaces the elementwise bodies of scripts/microbench_sublane.py
-// (_kernel_elem), microbench_layout.py (_kernel), microbench_i16.py (chain)
-// and the baseline / cond_* / while_2it patterns of microbench_patterns.py
-// and microbench_reductions.py.  Bound by 32-bit integer operations (the
-// arrays are read and written once, the chain is K x 64 ops deep); the
-// chain lives in registers, so both layouts only differ in how many
-// independent chains a thread carries (1 or 4).
-// x: [n_rows, width], width <= 128.
-template <int OP, int L, typename T>
 __global__ void __launch_bounds__(NT)
 probe_elem_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows, int width, int k,
                   int rows, int tile) {
-  using Y = Lay<L>;
+  using Y = Lay<L_CTA>;
   const int row = Y::row();
   if (row >= n_rows) return;
   const bool live = (row % tile) < rows;
@@ -245,40 +183,29 @@ probe_elem_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows, int
 
 // --- Shifts and rotations ------------------------------------------------------------
 
-__device__ __forceinline__ bool push_ok_down(int c) {   // _push(plane, 1)
-  return (c / 11 + 1 < 11) && c < 121;
-}
-__device__ __forceinline__ bool push_ok_right(int c) {  // _push(plane, 3)
-  return (c % 11 - 1 >= 0) && c < 121;
-}
-
-template <int SH, int L>
-__device__ __forceinline__ void prefix_round(Ctx<L>& cx, int (&p)[Lay<L>::NPT]) {
-  int r[Lay<L>::NPT];
-#pragma unroll
-  for (int j = 0; j < Lay<L>::NPT; ++j) r[j] = p[j];
+template <int SH>
+__device__ __forceinline__ void prefix_round(Ctx<L_CTA>& cx, int (&p)[1]) {
+  int r[1] = {p[0]};
   roll<SH>(cx, r);
-#pragma unroll
-  for (int j = 0; j < Lay<L>::NPT; ++j) p[j] |= (Lay<L>::cell(j) >= SH ? r[j] : 0);
+  p[0] |= (Lay<L_CTA>::cell(0) >= SH ? r[0] : 0);
 }
 
-// Replaces _kernel_roll (sublane), the i16 script's roll, and push,
-// push_hoist, prefix_or, whole4, rot4_all and colslice of the patterns and
-// reductions scripts.  Bound by the exchange, not by bytes or arithmetic:
-// L_CTA pays a shared-memory store, a barrier and a load per roll, L_WARP
-// four shuffles.
+// The shift family in the CTA layout (pw::probe_shift_warp_kernel and
+// pw::probe_shift_agents_kernel are the layout="warp" designs).  Bound by
+// the exchange: a shared-memory store, a barrier and a load per roll; the
+// agent patterns read the four values back through shared memory too.
 // plane: [n_rows, 128] of T; agents: [n_rows, 4] int32 (may be null).
-template <int OP, int L, typename T>
+template <int OP, typename T>
 __global__ void __launch_bounds__(NT)
 probe_shift_kernel(const T* __restrict__ p_in, T* __restrict__ p_out,
                    const int32_t* __restrict__ a_in, int32_t* __restrict__ a_out, int n_rows,
                    int k, int rows, int tile) {
-  using Y = Lay<L>;
+  using Y = Lay<L_CTA>;
   constexpr int NPT = Y::NPT;
   __shared__ int sm[2 * LANES];
-  Ctx<L> cx(sm);
+  Ctx<L_CTA> cx(sm);
   const int row = Y::row();
-  if (row >= n_rows) return;   // uniform per CTA (L_CTA) or per warp (L_WARP)
+  if (row >= n_rows) return;   // uniform per CTA
   const bool live = (row % tile) < rows;
   const int aj = Y::lane() & 3;
   T v[NPT];
@@ -334,13 +261,13 @@ probe_shift_kernel(const T* __restrict__ p_in, T* __restrict__ p_out,
         int p[NPT];
 #pragma unroll
         for (int j = 0; j < NPT; ++j) p[j] = (int)v[j];
-        prefix_round<1, L>(cx, p);
-        prefix_round<2, L>(cx, p);
-        prefix_round<4, L>(cx, p);
-        prefix_round<8, L>(cx, p);
-        prefix_round<16, L>(cx, p);
-        prefix_round<32, L>(cx, p);
-        prefix_round<64, L>(cx, p);
+        prefix_round<1>(cx, p);
+        prefix_round<2>(cx, p);
+        prefix_round<4>(cx, p);
+        prefix_round<8>(cx, p);
+        prefix_round<16>(cx, p);
+        prefix_round<32>(cx, p);
+        prefix_round<64>(cx, p);
 #pragma unroll
         for (int j = 0; j < NPT; ++j) v[j] = (T)(v[j] ^ p[j]);
       } else if constexpr (OP == S_WHOLE4) {
@@ -733,29 +660,19 @@ static int row_grid(int n_rows) {
   return (n_rows + Lay<L>::ROWS_PER_CTA - 1) / Lay<L>::ROWS_PER_CTA;
 }
 
-constexpr int ERR_BAD_ARGUMENT = 1;   // cudaErrorInvalidValue
-
 template <int OP, typename T>
-static int launch_elem(int layout, const void* in, void* out, int n_rows, int width, int k,
-                       int rows, int tile, cudaStream_t s) {
-  if (layout == L_CTA)
-    probe_elem_kernel<OP, L_CTA, T><<<row_grid<L_CTA>(n_rows), NT, 0, s>>>(
-        (const T*)in, (T*)out, n_rows, width, k, rows, tile);
-  else
-    probe_elem_kernel<OP, L_WARP, T><<<row_grid<L_WARP>(n_rows), NT, 0, s>>>(
-        (const T*)in, (T*)out, n_rows, width, k, rows, tile);
+static int launch_elem_cta(const void* in, void* out, int n_rows, int width, int k, int rows,
+                           int tile, cudaStream_t s) {
+  probe_elem_kernel<OP, T><<<row_grid<L_CTA>(n_rows), NT, 0, s>>>((const T*)in, (T*)out, n_rows,
+                                                                   width, k, rows, tile);
   return (int)cudaGetLastError();
 }
 
 template <int OP, typename T>
-static int launch_shift(int layout, const void* p_in, void* p_out, const int32_t* a_in,
-                        int32_t* a_out, int n_rows, int k, int rows, int tile, cudaStream_t s) {
-  if (layout == L_CTA)
-    probe_shift_kernel<OP, L_CTA, T><<<row_grid<L_CTA>(n_rows), NT, 0, s>>>(
-        (const T*)p_in, (T*)p_out, a_in, a_out, n_rows, k, rows, tile);
-  else
-    probe_shift_kernel<OP, L_WARP, T><<<row_grid<L_WARP>(n_rows), NT, 0, s>>>(
-        (const T*)p_in, (T*)p_out, a_in, a_out, n_rows, k, rows, tile);
+static int launch_shift_cta(const void* p_in, void* p_out, const int32_t* a_in, int32_t* a_out,
+                            int n_rows, int k, int rows, int tile, cudaStream_t s) {
+  probe_shift_kernel<OP, T><<<row_grid<L_CTA>(n_rows), NT, 0, s>>>(
+      (const T*)p_in, (T*)p_out, a_in, a_out, n_rows, k, rows, tile);
   return (int)cudaGetLastError();
 }
 
@@ -810,24 +727,13 @@ using namespace pomcpp_probes;
 int pomcpp_probe_elem(int op, int layout, int elem_size, const void* in, void* out, int n_rows,
                       int width, int k, int rows, int tile, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (layout != L_CTA && layout != L_WARP) return ERR_BAD_ARGUMENT;
-  if (width < 1 || width > LANES || tile < 1) return ERR_BAD_ARGUMENT;
-  if (elem_size != 4 && op != E_CHAIN) return ERR_BAD_ARGUMENT;
-#define ELEM(OP, T) return launch_elem<OP, T>(layout, in, out, n_rows, width, k, rows, tile, s)
-  switch (op) {
-    case E_ELEM: ELEM(E_ELEM, int32_t);
-    case E_CHAIN:
-      if (elem_size == 4) ELEM(E_CHAIN, int32_t);
-      if (elem_size == 2) ELEM(E_CHAIN, int16_t);
-      if (elem_size == 1) ELEM(E_CHAIN, int8_t);
-      return ERR_BAD_ARGUMENT;
-    case E_BASELINE: ELEM(E_BASELINE, int32_t);
-    case E_COND_FALSE: ELEM(E_COND_FALSE, int32_t);
-    case E_COND_TRUE: ELEM(E_COND_TRUE, int32_t);
-    case E_WHILE2: ELEM(E_WHILE2, int32_t);
-  }
-#undef ELEM
-  return ERR_BAD_ARGUMENT;
+  if (layout == L_WARP)
+    return pw::probe_elem(op, elem_size, in, out, n_rows, width, k, rows, tile, s);
+  if (layout != L_CTA) return ERR_BAD_ARGUMENT;
+  return elem_case(op, elem_size, width, tile, [&](auto o, auto ty) {
+    return launch_elem_cta<decltype(o)::value, decltype(ty)>(in, out, n_rows, width, k, rows,
+                                                              tile, s);
+  });
 }
 
 // Narrow planes exist for S_ROLL2 only; a_in / a_out may be null for the
@@ -836,26 +742,13 @@ int pomcpp_probe_shift(int op, int layout, int elem_size, const void* p_in, void
                        const int32_t* a_in, int32_t* a_out, int n_rows, int k, int rows,
                        int tile, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (layout != L_CTA && layout != L_WARP) return ERR_BAD_ARGUMENT;
-  if (tile < 1 || (elem_size != 4 && op != S_ROLL2)) return ERR_BAD_ARGUMENT;
-#define SHIFT(OP, T) \
-  return launch_shift<OP, T>(layout, p_in, p_out, a_in, a_out, n_rows, k, rows, tile, s)
-  switch (op) {
-    case S_ROLL: SHIFT(S_ROLL, int32_t);
-    case S_ROLL2:
-      if (elem_size == 4) SHIFT(S_ROLL2, int32_t);
-      if (elem_size == 2) SHIFT(S_ROLL2, int16_t);
-      if (elem_size == 1) SHIFT(S_ROLL2, int8_t);
-      return ERR_BAD_ARGUMENT;
-    case S_PUSH: SHIFT(S_PUSH, int32_t);
-    case S_PUSH_HOIST: SHIFT(S_PUSH_HOIST, int32_t);
-    case S_PREFIX_OR: SHIFT(S_PREFIX_OR, int32_t);
-    case S_WHOLE4: SHIFT(S_WHOLE4, int32_t);
-    case S_ROT4: SHIFT(S_ROT4, int32_t);
-    case S_COLSLICE: SHIFT(S_COLSLICE, int32_t);
-  }
-#undef SHIFT
-  return ERR_BAD_ARGUMENT;
+  if (layout == L_WARP)
+    return pw::probe_shift(op, elem_size, p_in, p_out, a_in, a_out, n_rows, k, rows, tile, s);
+  if (layout != L_CTA) return ERR_BAD_ARGUMENT;
+  return shift_case(op, elem_size, tile, [&](auto o, auto ty) {
+    return launch_shift_cta<decltype(o)::value, decltype(ty)>(p_in, p_out, a_in, a_out, n_rows,
+                                                               k, rows, tile, s);
+  });
 }
 
 int pomcpp_probe_reduce(int op, int layout, const int32_t* p_in, int32_t* p_out,

@@ -26,10 +26,25 @@ plain PyTorch version beside it:
   ``dotred`` (one-column products inside row reductions,
   ``probe_dot_kernel``).
 
-``layout`` picks how a row maps onto threads: ``"cta"`` is one row per
-128-thread CTA with exchange through shared memory and ``__syncthreads``
-(the engine kernels' layout); ``"warp"`` is one row per warp, four cells per
-thread, exchange through ``__shfl_sync``.  Both give the same output.
+``layout`` picks how the work maps onto threads; both give the same
+output.  ``"cta"`` is one row per 128-thread CTA, one cell per thread,
+exchange through shared memory and ``__syncthreads`` (the engine kernels'
+first layout, kept as an instrument), in every family.  ``"warp"`` is the
+design for the card, per family (``csrc/probe_warp.cuh`` for elem and
+shift):
+
+* elem   -- a dense element mapping: the ``[R, width]`` array flattened,
+  four consecutive elements a thread (one 16-byte access for i32), so the
+  cost follows R x width and not R x 128 lanes;
+* shift  -- plane rolls one row per warp, cells 4t..4t+3 in lane t (the
+  engine's layout), a shuffle only for a value whose source lies in another
+  lane's four cells (``roll`` by 1: one a lane; by 117: four);
+  ``prefix_or`` a warp scan of five ``__shfl_up_sync`` rounds; the agent
+  patterns (``whole4``, ``rot4_all``, ``colslice``) 32 rows a warp, a row's
+  four agents in one lane's registers, no shuffle;
+* reduce, ``dotred`` -- one row per warp, four cells a thread, reductions
+  by ``__shfl_xor_sync``.
+
 ``dot`` takes no layout: a warpgroup of its kernel owns 64 rows.
 ``rows`` / ``tile`` restrict the work to the first ``rows`` rows of every
 ``tile`` rows, the sublane script's sweep; the other rows are copied.
@@ -43,7 +58,24 @@ two.  ``device=None`` means the card.
 
 times every pattern of the named scripts (all by default) in both layouts
 at the scripts' sizes (16384 rows, K = 200 or 300) and prints one line per
-pattern, after a first line with the card's name and power limit.
+pattern and layout with its bound, after a first line with the card's name,
+power limit and rates (``card_rates``).
+
+A pattern's bound is the least time the card could take for its function:
+the largest of its 32-bit instructions over the issue rate (128 lanes a
+clock per SM: four schedulers, one warp instruction a clock each), its lane
+shuffles over the shuffle rate (32 lanes a clock per SM) and its bytes
+(every input read once, every output written once) over the memory rate;
+``dot`` counts its tensor-core passes instead of instructions.  The counts
+(``Pattern.ops``, ``Pattern.shuffles``) are the fewest the function needs
+in the engine's row layout, op by op: a compare, a select with a constant
+arm, a three-input add (IADD3) or a three-input logic op (LOP3) is one
+instruction, a roll's move within a lane is none, a value that crosses a
+lane's four cells is one shuffle, and every shuffle also takes an issue
+slot.  No identity across ops is used but those nvcc is seen to use (in
+the SASS): a roll's adds of i between two lane crossings of a value fold
+into one, and the loops of the i8 ``chain``, ``cond_*`` and ``while_2it``
+fold to a closed form, counted once per element whatever K.
 """
 
 from __future__ import annotations
@@ -56,7 +88,8 @@ import torch
 
 from . import _ext
 from .core.state import I32
-from .device import resolve_device
+from .device import (Rates, card_rates, method_floor, rates_line, resolve_device,
+                     time_device)
 
 LANES = 128
 AGENTS = 4
@@ -85,7 +118,9 @@ def _on_live_rows(x, rows: int, tile: int, fn):
     if x.shape[0] % tile:
         raise ValueError(f"{x.shape[0]} rows do not divide into tiles of {tile}")
     out = x.clone().view(-1, tile, x.shape[1])
-    live = out[:, :rows].reshape(-1, x.shape[1])
+    # A copy: an op that leaves the array alone returns its input, which
+    # may be a view of ``out`` (one tile).
+    live = out[:, :rows].reshape(-1, x.shape[1]).clone()
     out[:, :rows] = fn(live).view(-1, rows, x.shape[1])
     return out.view(x.shape)
 
@@ -267,10 +302,12 @@ def probe_dot_plain(x, w, op: str, k: int, rows: int = TILE, tile: int = TILE):
 # --- Kernel wrappers --------------------------------------------------------------
 
 
-def _ready(t, dtype, shape, what):
+def _ready(t, dtype, shape, what, device_type):
     t = t.contiguous()
-    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_cuda:
-        raise ValueError(f"{what} must be {dtype} {list(shape)} on the card")
+    if t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{what} must be {dtype} {list(shape)}")
+    if t.device.type != device_type:
+        raise ValueError(f"{what} is not on a {device_type} device")
     return t
 
 
@@ -279,7 +316,7 @@ def _launch_args(layout, k, rows, tile):
         raise ValueError(f"layout must be one of {sorted(LAYOUTS)}")
     if k < 0 or rows < 0 or tile < 1:
         raise ValueError("k and rows must be >= 0 and tile >= 1")
-    return LAYOUTS[layout], torch.cuda.current_stream().cuda_stream
+    return LAYOUTS[layout]
 
 
 def _int_type(t, op):
@@ -288,69 +325,92 @@ def _int_type(t, op):
     return t.element_size()
 
 
-def _probe_elem_cuda(x, op, k, layout, rows, tile):
-    lay, stream = _launch_args(layout, k, rows, tile)
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _probe_elem_launch(lib, stream, x, op, k, layout, rows, tile):
+    """Marshal the arguments and call the elem launcher of ``lib``: the
+    ``nvcc`` build on the card's stream, which counts as a launch, or, in
+    the tests, the host build of ``csrc/probe_warp.cuh`` on CPU tensors
+    (``stream=None``), which does not."""
+    lay = _launch_args(layout, k, rows, tile)
     size = _int_type(x, op)
     if x.dim() != 2 or not 1 <= x.shape[1] <= LANES:
         raise ValueError("x must be [rows, width] with width <= 128")
-    x = _ready(x, x.dtype, tuple(x.shape), "x")
+    x = _ready(x, x.dtype, tuple(x.shape), "x",
+               "cpu" if stream is None else "cuda")
     out = torch.empty_like(x)
-    lib = _ext.probes_lib()
     _ext.check(lib.pomcpp_probe_elem(
         ELEM_OPS[op], lay, size, x.data_ptr(), out.data_ptr(), x.shape[0],
         x.shape[1], k, rows, tile, stream), lib.pomcpp_probes_error_string)
-    _ext.LAUNCHES["probe_elem_kernel"] += 1
+    if stream is not None:
+        _ext.LAUNCHES["probe_elem_kernel"] += 1
     return out
 
 
-def _plane_and_agents(plane, agents, dtype):
+def _probe_elem_cuda(x, op, k, layout, rows, tile):
+    return _probe_elem_launch(_ext.probes_lib(), _stream(), x, op, k, layout,
+                              rows, tile)
+
+
+def _plane_and_agents(plane, agents, dtype, device_type):
     n = plane.shape[0]
-    plane = _ready(plane, dtype, (n, LANES), "plane")
+    plane = _ready(plane, dtype, (n, LANES), "plane", device_type)
     if agents is None:
         return plane, None, None, n
-    agents = _ready(agents, I32, (n, AGENTS), "agents")
+    agents = _ready(agents, I32, (n, AGENTS), "agents", device_type)
     return plane, agents, torch.empty_like(agents), n
 
 
-def _probe_shift_cuda(plane, agents, op, k, layout, rows, tile):
-    lay, stream = _launch_args(layout, k, rows, tile)
+def _probe_shift_launch(lib, stream, plane, agents, op, k, layout, rows,
+                        tile):
+    """As ``_probe_elem_launch``, for the shift family."""
+    lay = _launch_args(layout, k, rows, tile)
     size = _int_type(plane, op)
-    plane, agents, a_out, n = _plane_and_agents(plane, agents, plane.dtype)
+    plane, agents, a_out, n = _plane_and_agents(
+        plane, agents, plane.dtype, "cpu" if stream is None else "cuda")
     p_out = torch.empty_like(plane)
-    lib = _ext.probes_lib()
     _ext.check(lib.pomcpp_probe_shift(
         SHIFT_OPS[op], lay, size, plane.data_ptr(), p_out.data_ptr(),
         None if agents is None else agents.data_ptr(),
         None if agents is None else a_out.data_ptr(), n, k, rows, tile,
         stream), lib.pomcpp_probes_error_string)
-    _ext.LAUNCHES["probe_shift_kernel"] += 1
+    if stream is not None:
+        _ext.LAUNCHES["probe_shift_kernel"] += 1
     return p_out if agents is None else (p_out, a_out)
 
 
+def _probe_shift_cuda(plane, agents, op, k, layout, rows, tile):
+    return _probe_shift_launch(_ext.probes_lib(), _stream(), plane, agents,
+                               op, k, layout, rows, tile)
+
+
 def _probe_reduce_cuda(plane, agents, op, k, layout, rows, tile):
-    lay, stream = _launch_args(layout, k, rows, tile)
-    plane, agents, a_out, n = _plane_and_agents(plane, agents, I32)
+    lay = _launch_args(layout, k, rows, tile)
+    plane, agents, a_out, n = _plane_and_agents(plane, agents, I32, "cuda")
     p_out = torch.empty_like(plane)
     lib = _ext.probes_lib()
     _ext.check(lib.pomcpp_probe_reduce(
         REDUCE_OPS[op], lay, plane.data_ptr(), p_out.data_ptr(),
         None if agents is None else agents.data_ptr(),
         None if agents is None else a_out.data_ptr(), n, k, rows, tile,
-        stream), lib.pomcpp_probes_error_string)
+        _stream()), lib.pomcpp_probes_error_string)
     _ext.LAUNCHES["probe_reduce_kernel"] += 1
     return p_out if agents is None else (p_out, a_out)
 
 
 def _probe_dot_cuda(x, w, op, k, layout, rows, tile):
-    lay, stream = _launch_args(layout, k, rows, tile)
+    lay = _launch_args(layout, k, rows, tile)
     n = x.shape[0]
-    x = _ready(x, torch.float32 if op == "dot" else I32, (n, LANES), "x")
-    w = _ready(w, torch.float32, (LANES, LANES), "w")
+    x = _ready(x, torch.float32 if op == "dot" else I32, (n, LANES), "x",
+               "cuda")
+    w = _ready(w, torch.float32, (LANES, LANES), "w", "cuda")
     out = torch.empty_like(x)
     lib = _ext.probes_lib()
     _ext.check(lib.pomcpp_probe_dot(
         DOT_OPS[op], lay, x.data_ptr(), w.data_ptr(), out.data_ptr(), n, k,
-        rows, tile, stream), lib.pomcpp_probes_error_string)
+        rows, tile, _stream()), lib.pomcpp_probes_error_string)
     _ext.LAUNCHES[DOT_KERNEL[op]] += 1
     return out
 
@@ -383,6 +443,8 @@ def probe_shift(plane, agents, op: str, k: int, layout: str = "cta",
     ``[R, 128]`` (i32, or i16 / i8 for ``roll2``), ``agents`` i32 ``[R, 4]``
     or None; returns the new plane, or ``(plane, agents)``."""
     _known(op, SHIFT_OPS)
+    if agents is None and op in ("whole4", "rot4_all", "colslice"):
+        raise ValueError(f"{op} needs the agent array")
     device, (plane, agents) = _place(device, plane, agents)
     if device.type == "cpu":
         return probe_shift_plain(plane, agents, op, k, rows, tile)
@@ -431,10 +493,13 @@ class Pattern(NamedTuple):
     k: int           # the script's loop count
     per_iter: int    # what the script divides by: chained ops, reductions
                      # or products per iteration (1: it reports per iteration)
-    ops: int         # operations per element and iteration, as the Pallas
-                     # body writes them (f32 flops for the products)
+    ops: float       # 32-bit instructions per element and iteration besides
+                     # the shuffles (the module docstring's counting rule)
     dtype: torch.dtype = I32
     width: int = LANES
+    shuffles: float = 0.0   # lane shuffles per element and iteration
+    closed: bool = False    # ``ops`` is per element for the whole launch:
+                            # the loop folds to a closed form
 
     @property
     def on_agents(self) -> bool:
@@ -444,42 +509,78 @@ class Pattern(NamedTuple):
 
 
 def _patterns():
+    # Per element and iteration; "lane" counts are per 4 cells.
     out = [
-        Pattern("sublane", "elem", "elem", "elem", 200, 64, 64),
-        Pattern("sublane", "roll", "shift", "roll", 200, 64, 64),
-        # dot: 32 x (128 FMAs + 1 add) per element and iteration, as f32
-        # operations outside the tensor cores (the kernel's tensor-core work
-        # is ``tensor_ops``).
-        Pattern("sublane", "dot", "dot", "dot", 200, 32, 32 * 257,
+        # 16 rounds of x > 3 (ISETP), -4 or 0 (SEL), x + 1 + sel (IADD3),
+        # ^ 5 (LOP3), + i: the compare needs x after its add (comparing
+        # before it would differ where the add wraps).
+        Pattern("sublane", "elem", "elem", "elem", 200, 64, 80),
+        # 32 x (roll by 1: 1 shuffle a lane; + i).  A value crosses a lane
+        # every 4 rolls and its adds of i in between fold into one (nvcc
+        # does): 8 adds and 8 shuffles an element.
+        Pattern("sublane", "roll", "shift", "roll", 200, 64, 8,
+                shuffles=32 / 4),
+        # dot: 32 x (128 FMAs + 1 add) per element and iteration outside the
+        # tensor cores (its bound is the tensor-core passes, ``tensor_ops``).
+        Pattern("sublane", "dot", "dot", "dot", 200, 32, 32 * 129,
                 torch.float32),
+        # The reduce and dotred counts are as the Pallas bodies write them.
         Pattern("sublane", "sumred", "reduce", "sumred", 200, 8, 16),
         # Per element, 8 rounds of: & and >>, two int -> f32 conversions,
         # two FMAs into the one column the script reads, the add of r.
         Pattern("sublane", "dotred", "dot", "dotred", 200, 8, 8 * 10),
     ]
     for dtype in INT_TYPES:
-        out.append(Pattern("i16", "chain", "elem", "chain", 300, 1, 48, dtype))
-        out.append(Pattern("i16", "roll", "shift", "roll2", 300, 1, 16, dtype))
+        if dtype == torch.int8:
+            # After one round bit 7 is clear, x >> 7 is 0 and a round only
+            # toggles bit 0, 8 times an iteration: the chain is x & 0x7F.
+            out.append(Pattern("i16", "chain", "elem", "chain", 300, 1, 1,
+                               dtype, closed=True))
+        else:
+            # 8 rounds of x + 1 (IADD3), & carry, (x & keep) | u (two LOP3),
+            # x >> 7 (SHF), ^ (LOP3).
+            out.append(Pattern("i16", "chain", "elem", "chain", 300, 1, 40,
+                               dtype))
+        # 4 x (roll by 1: 1 shuffle a lane; +, and for i16 / i8 its wrap to
+        # the type; roll by 117: 4; ^).
+        out.append(Pattern("i16", "roll", "shift", "roll2", 300, 1,
+                           8 if dtype == I32 else 12, dtype,
+                           shuffles=4 * 5 / 4))
     for width in (128, 4, 8, 32):
-        out.append(Pattern("layout", "elem", "elem", "elem", 200, 64, 64,
+        out.append(Pattern("layout", "elem", "elem", "elem", 200, 64, 80,
                            width=width))
-    out.append(Pattern("patterns", "baseline", "elem", "baseline", 300, 1, 40))
-    for name, ops in (("colslice", 28), ("whole4", 9), ("push", 14),
-                      ("push_hoist", 6)):
-        out.append(Pattern("patterns", name, "shift", name, 300, 1, ops))
+    # 8 rounds of x > 3 (ISETP), -4 or 0 (SEL), x + 1 + sel (IADD3), ^ i.
+    out.append(Pattern("patterns", "baseline", "elem", "baseline", 300, 1,
+                       32))
+    # colslice: per agent, > 2, -3 or 0, + 1 + sel, ^ i.  whole4: ==, +2 or
+    # 0, - 1 + sel, ^ i, max, + i; the rolls are register moves.
+    # push / push_hoist: the two masked arms (constant masks, hoisted) and
+    # one IADD3; roll by 117 (4 shuffles a lane) and by 1 (1).
+    for name, ops, shuffles in (("colslice", 4, 0), ("whole4", 6, 0),
+                                ("push", 3, 5 / 4), ("push_hoist", 3, 5 / 4)):
+        out.append(Pattern("patterns", name, "shift", name, 300, 1, ops,
+                           shuffles=shuffles))
     out.append(Pattern("patterns", "onehot_rd", "reduce", "onehot_rd", 300, 1,
                        12))
     out.append(Pattern("reductions", "baseline", "elem", "baseline", 300, 1,
-                       40))
+                       32))
     for name, ops in (("any_plane", 4), ("any4", 4), ("axis1_any", 4),
                       ("packed_sum", 15), ("min_red4", 16)):
         out.append(Pattern("reductions", name, "reduce", name, 300, 1, ops))
+    # rot4_all: a row's (a & 7) != 7 (4 LOP3 with a predicate out), their
+    # AND (2), 1 or 2 (1), four adds: 11 a row of four agents.
     out.append(Pattern("reductions", "rot4_all", "shift", "rot4_all", 300, 1,
-                       11))
-    for name, ops in (("cond_false", 1), ("cond_true", 1), ("while_2it", 2)):
-        out.append(Pattern("reductions", name, "elem", name, 300, 1, ops))
-    out.append(Pattern("reductions", "prefix_or", "shift", "prefix_or", 300, 1,
-                       29))
+                       11 / 4))
+    # Closed forms: nothing, x + K, x + 2K.
+    for name, ops in (("cond_false", 0), ("cond_true", 1), ("while_2it", 1)):
+        out.append(Pattern("reductions", name, "elem", name, 300, 1, ops,
+                           closed=True))
+    # prefix_or as a warp scan, a lane's 4 cells: their OR (2), 5 shuffle
+    # rounds of the lane totals (an OR each into the inclusive and, guarded,
+    # the exclusive total; the last round the exclusive only: 9), then per
+    # cell q & ~p and the running q | p (7).
+    out.append(Pattern("reductions", "prefix_or", "shift", "prefix_or", 300,
+                       1, 18 / 4, shuffles=5 / 4))
     return tuple(out)
 
 
@@ -489,6 +590,17 @@ FAMILY_KERNEL = {"elem": "probe_elem_kernel", "shift": "probe_shift_kernel",
                  "reduce": "probe_reduce_kernel", "dot": "probe_dot_kernel"}
 DOT_KERNEL = {"dot": "probe_dot_tc_kernel", "dotred": "probe_dot_kernel"}
 TC_PASSES = 3     # TF32 products per f32 product in probe_dot_tc_kernel
+
+
+# The closed forms of the patterns whose loops fold (``Pattern.closed``),
+# each one PyTorch call: what their counts rest on, held against the plain
+# versions by the tests and on the card.
+CLOSED_FORMS = {
+    "chain": lambda x, k: x & 0x7F if k else x.clone(),   # int8 only
+    "cond_false": lambda x, k: x.clone(),
+    "cond_true": lambda x, k: x + k,
+    "while_2it": lambda x, k: x + 2 * k,
+}
 
 
 def kernel_of(p: Pattern) -> str:
@@ -504,10 +616,11 @@ def tensor_ops(p: Pattern, n_rows: int, k=None) -> int:
     return n_rows * LANES * k * 32 * 2 * LANES * TC_PASSES
 
 
-def work(p: Pattern, n_rows: int, k=None) -> tuple[int, int]:
-    """(operations, bytes) of one launch: ``ops`` per element of the array
-    the pattern works on and iteration; every input read once and every
-    output written once."""
+def work(p: Pattern, n_rows: int, k=None) -> tuple[float, float, int]:
+    """(instructions, lane shuffles, bytes) of one launch: ``ops`` and
+    ``shuffles`` per element of the array the pattern works on and
+    iteration (instructions include the shuffles, which take an issue slot
+    too); every input read once and every output written once."""
     k = p.k if k is None else k
     elements = n_rows * (AGENTS if p.on_agents else p.width)
     size = torch.empty((), dtype=p.dtype).element_size()
@@ -516,7 +629,24 @@ def work(p: Pattern, n_rows: int, k=None) -> tuple[int, int]:
         moved += LANES * LANES * 4
     elif p.script in ("patterns", "reductions") and p.family != "elem":
         moved += 2 * n_rows * AGENTS * 4
-    return elements * k * p.ops, moved
+    shuffles = elements * k * p.shuffles
+    ops = elements * (1 if p.closed else k) * p.ops
+    return ops + shuffles, shuffles, moved
+
+
+def bound(p: Pattern, n_rows: int, rates: Rates, k=None) -> tuple[float, str]:
+    """(ms, term): the least time of one launch, the largest of its
+    instructions over the issue rate ("instructions"; ``dot``: its
+    tensor-core operations over the TF32 rate, "tensor"), its lane shuffles
+    over the shuffle rate ("shuffles") and its bytes over the memory rate
+    ("bytes")."""
+    instructions, shuffles, moved = work(p, n_rows, k)
+    ops = (instructions / rates.issue, "instructions")
+    if p.op == "dot":
+        ops = (tensor_ops(p, n_rows, k) / rates.tf32, "tensor")
+    t, term = max(ops, (shuffles / rates.shuffle, "shuffles"),
+                  (moved / rates.hbm, "bytes"), key=lambda x: x[0])
+    return t * 1e3, term
 
 
 def label(p: Pattern) -> str:
@@ -586,24 +716,22 @@ def run_pattern(p: Pattern, inputs, k=None, layout: str = "cta",
 
 
 def time_pattern(p: Pattern, inputs, layout: str, reps: int = 3) -> float:
-    """Mean milliseconds of one launch at the pattern's own ``k`` (CUDA
-    events; one warm-up launch first)."""
-    run_pattern(p, inputs, layout=layout)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        run_pattern(p, inputs, layout=layout)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean device milliseconds of one launch at the pattern's own ``k``
+    (``time_device``)."""
+    device = next(t for t in inputs.values() if t is not None).device
+    return time_device(lambda: run_pattern(p, inputs, layout=layout), device,
+                       reps)
 
 
-def report_line(p: Pattern, layout: str, ms: float) -> str:
+def report_line(p: Pattern, layout: str, ms: float, bound_ms=None,
+                term=None) -> str:
     unit = "op" if p.per_iter > 1 else "iter"
     ns = ms * 1e6 / (p.k * p.per_iter)
-    return (f"{label(p):28s} {layout:4s}: {ms:9.3f} ms  "
+    line = (f"{label(p):28s} {layout:4s}: {ms:9.4f} ms  "
             f"{ns:9.1f} ns/{unit} (K={p.k}, {p.per_iter} per iteration)")
+    if bound_ms is not None:
+        line += f"; bound {bound_ms:.4f} ms ({term}), {bound_ms / ms:.0%}"
+    return line
 
 
 def card_line() -> str:
@@ -613,21 +741,30 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def floor_line(floor: dict) -> str:
+    return (f"timer floor (time_device): empty kernel {floor['empty_ms']:.4f} "
+            f"ms, 16 MB copy {floor['copy_16mb_ms']:.4f} ms")
+
+
 def run_report(scripts=SCRIPTS, n_rows: int = 16384, reps: int = 3,
                device=None, out=print):
     """Time every pattern of ``scripts`` in both layouts at the scripts'
-    own sizes; writes one line per pattern and layout through ``out`` and
-    returns ``[(pattern, layout, ms), ...]``."""
+    own sizes; writes one line per pattern and layout, with the pattern's
+    bound, through ``out`` and returns ``[(pattern, layout, ms), ...]``."""
     device = resolve_device(device)
-    out(f"device: {card_line()}; {n_rows} rows x {LANES} lanes")
+    rates = card_rates(device.index or 0)
+    out(f"device: {card_line()}; {n_rows} rows x {LANES} lanes; "
+        f"{rates_line(rates)}")
+    out(floor_line(method_floor(device, reps)))
     results = []
     for p in PATTERNS:
         if p.script not in scripts:
             continue
         inputs = pattern_inputs(p, n_rows, device)
+        b_ms, term = bound(p, n_rows, rates)
         for layout in LAYOUTS:
             ms = time_pattern(p, inputs, layout, reps)
-            out(report_line(p, layout, ms))
+            out(report_line(p, layout, ms, b_ms, term))
             results.append((p, layout, ms))
     return results
 

@@ -16,6 +16,10 @@ Three kinds of test:
   functions on CPU tensors -- which ``tests/test_torch_chunk.py``,
   ``test_torch_fsm.py``, ``test_torch_fused_step.py`` and
   ``test_torch_env.py`` hold against the JAX functions;
+* the probes' layout="warp" designs (``csrc/probe_warp.cuh``) through a
+  small C binding: every elem and shift pattern against its plain
+  version, bit for bit, and each plane pattern's shuffles per lane counted
+  against the exchange its design claims;
 * the emulator itself: it must report an intrinsic reached by only part of
   a warp instead of hanging or passing.
 """
@@ -42,7 +46,8 @@ from pomcpp_tpu_torch.engine.fsm import (
 from pomcpp_tpu_torch.env import environment as env
 
 CSRC = _ext.CSRC
-WARP_HEADERS = ("step_warp.cuh", "fsm_warp.cuh", "env_warp.cuh")
+WARP_HEADERS = ("step_warp.cuh", "fsm_warp.cuh", "env_warp.cuh",
+                "probe_warp.cuh")
 CTA_BARRIER = re.compile(
     r"__syncthreads|bar\.sync|barrier\.sync|__cluster|cooperative_groups"
     r"|cuda::barrier|mbarrier")
@@ -756,3 +761,148 @@ def test_host_emulation_reports_a_divergent_intrinsic(tmp_path_factory):
     assert lib.run(0, out) == 0
     assert [v & 0xFFFFFFFF for v in out] == [0xAAAAAAAA] * 32
     assert lib.run(1, out) != 0
+
+
+# --- the probes' warp designs on the CPU ------------------------------------------
+
+PROBE_BINDING = r"""
+#include <cuda_runtime.h>
+#include "probe_warp.cuh"
+using namespace pomcpp_probes;
+extern "C" {
+int pomcpp_probe_elem(int op, int layout, int elem_size, const void* in, void* out, int n_rows,
+                      int width, int k, int rows, int tile, void* stream) {
+  if (layout != L_WARP) return ERR_BAD_ARGUMENT;
+  return pw::probe_elem(op, elem_size, in, out, n_rows, width, k, rows, tile, stream);
+}
+int pomcpp_probe_shift(int op, int layout, int elem_size, const void* p_in, void* p_out,
+                       const int32_t* a_in, int32_t* a_out, int n_rows, int k, int rows,
+                       int tile, void* stream) {
+  if (layout != L_WARP) return ERR_BAD_ARGUMENT;
+  return pw::probe_shift(op, elem_size, p_in, p_out, a_in, a_out, n_rows, k, rows, tile, stream);
+}
+const char* pomcpp_probes_error_string(int err) { return cudaGetErrorString(err); }
+// Each lane's shuffles since the last call, by lane index.
+void pomcpp_probe_shuffles(unsigned long long* out) {
+  for (int l = 0; l < 32; ++l) {
+    out[l] = emu::warp().shuffles[l];
+    emu::warp().shuffles[l] = 0;
+  }
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def probe_lib(tmp_path_factory):
+    src = tmp_path_factory.mktemp("probe_binding") / "probe_binding.cc"
+    src.write_text(PROBE_BINDING)
+    lib = _ext.bind_probes(_host_build(tmp_path_factory, src,
+                                       "libprobes_host.so"))
+    lib.pomcpp_probe_shuffles.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _shuffles(lib):
+    counts = (ctypes.c_ulonglong * 32)()
+    lib.pomcpp_probe_shuffles(counts)
+    return list(counts)
+
+
+def _warp_run(lib, p, inputs, k, rows=128, tile=128):
+    if p.family == "elem":
+        return probes._probe_elem_launch(lib, None, inputs["x"], p.op, k,
+                                         "warp", rows, tile)
+    return probes._probe_shift_launch(lib, None, inputs["plane"],
+                                      inputs["agents"], p.op, k, "warp", rows,
+                                      tile)
+
+
+def _same_probe(got, want, what):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), what
+
+
+WARP_PATTERNS = [p for p in probes.PATTERNS if p.family in ("elem", "shift")]
+# (rows in all, rows, tile, offset): every row live; the first 32 rows of
+# each 128; a row count that fills neither the elem kernel's 128-element
+# warps nor the agent kernel's 32-row warps nor the plane kernel's 4-row
+# CTAs; and the ragged count from inputs that start one element past a
+# 16-byte boundary (contiguous views at an offset, which ``.contiguous()``
+# leaves as they are: the kernels' element-by-element path).
+PROBE_CASES = {"live": (64, 128, 128, 0), "rows32": (128, 32, 128, 0),
+               "ragged": (45, 128, 128, 0), "unaligned": (45, 128, 128, 1)}
+
+
+def _offset_view(t):
+    """``t``'s values in a contiguous view that starts one element later
+    than a fresh allocation."""
+    t = torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+    assert t.is_contiguous() and t.data_ptr() % 16
+    return t
+
+
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+@pytest.mark.parametrize("p", WARP_PATTERNS, ids=probes.label)
+def test_probe_warp_source_matches_plain(probe_lib, p, case):
+    """Every elem and shift pattern of layout="warp" (the dense element
+    mapping, the plane rolls, the warp scan, the agent rows) against its
+    plain version, bit for bit, K = 3."""
+    n, rows, tile, offset = PROBE_CASES[case]
+    inputs = probes.pattern_inputs(p, n, "cpu", seed=len(probes.label(p)) + n)
+    given = {key: _offset_view(t) if offset and t is not None else t
+             for key, t in inputs.items()}
+    got = _warp_run(probe_lib, p, given, 3, rows, tile)
+    want = probes.run_pattern(p, inputs, k=3, plain=True, rows=rows, tile=tile)
+    _same_probe(got, want, f"{probes.label(p)} {case}")
+
+
+@pytest.mark.parametrize("dtype", probes.INT_TYPES, ids=str)
+@pytest.mark.parametrize("width", [4, 8, 32, 128, 5])
+def test_probe_warp_chain_at_every_width_and_type(probe_lib, width, dtype):
+    """The dense mapping at every width the layout script sweeps (and 5,
+    whose rows end mid-access), from an array whose first element is not
+    16-byte aligned (the kernel's element-by-element path) and from one that
+    is, 24 rows of which the first 3 of every 4 are live, K = 2."""
+    gen = torch.Generator().manual_seed(width)
+    info = torch.iinfo(dtype)
+    flat = torch.randint(info.min, info.max, (24 * width + 1,), generator=gen,
+                         dtype=torch.int64).to(dtype)
+    for x in (flat[1:].view(24, width), flat[:-1].view(24, width)):
+        got = probes._probe_elem_launch(probe_lib, None, x, "chain", 2, "warp",
+                                        3, 4)
+        assert torch.equal(got, probes.probe_elem_plain(x, "chain", 2, 3, 4))
+        assert torch.equal(got[3::4], x[3::4])
+
+
+@pytest.mark.parametrize("name,per_iter", [
+    ("sublane.roll", 32), ("i16.roll[int32]", 20), ("i16.roll[int8]", 20),
+    ("patterns.push", 5), ("patterns.push_hoist", 5),
+    ("reductions.prefix_or", 5), ("patterns.colslice", 0),
+    ("patterns.whole4", 0), ("reductions.rot4_all", 0),
+])
+def test_probe_warp_shuffles_only_across_lane_groups(probe_lib, name,
+                                                     per_iter):
+    """Shuffles a lane issues per row and iteration: roll by 1 one (not
+    four), roll by 117 four, prefix_or the five rounds of its warp scan (not
+    the 28 of seven full rolls), the agent patterns none; rows that are not
+    live issue none."""
+    p = next(q for q in probes.PATTERNS if probes.label(q) == name)
+    k, n = 3, 256
+    inputs = probes.pattern_inputs(p, n, "cpu", seed=1)
+    _shuffles(probe_lib)
+    _warp_run(probe_lib, p, inputs, k)
+    assert _shuffles(probe_lib) == [n * k * per_iter] * 32
+    _warp_run(probe_lib, p, inputs, k, rows=32)
+    assert _shuffles(probe_lib) == [n // 4 * k * per_iter] * 32
+
+
+def test_probe_warp_header_has_no_asm_and_maps_elements_densely():
+    code = _strip_comments((CSRC / "probe_warp.cuh").read_text())
+    assert "asm" not in code
+    # The elem grid follows the rows x width elements, not rows x 128 lanes.
+    assert "const long long n = (long long)n_rows * width;" in code
+    assert "(n + (long long)NT * EPT - 1) / ((long long)NT * EPT)" in code
+    assert '#include "probe_warp.cuh"' in (CSRC / "probes.cu").read_text()

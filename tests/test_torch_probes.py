@@ -156,6 +156,8 @@ def test_tile_reductions_see_their_own_tile_only():
         probes.probe_reduce(plane, agents, "any_plane", 1, rows=8, device="cpu")
     with pytest.raises(ValueError, match="agent"):
         probes.probe_reduce(plane, None, "axis1_any", 1, device="cpu")
+    with pytest.raises(ValueError, match="agent"):
+        probes.probe_shift(plane, None, "whole4", 1, device="cpu")
 
 
 def test_entry_points_reject_unknown_ops_and_need_a_card_by_default():
@@ -172,3 +174,15 @@ def test_entry_points_reject_unknown_ops_and_need_a_card_by_default():
     assert probes.main(["nope"]) == 2
     assert len({probes.label(p) for p in probes.PATTERNS}) == len(probes.PATTERNS)
     assert {p.family for p in probes.PATTERNS} == set(probes.FAMILY_KERNEL)
+
+
+@pytest.mark.parametrize("p", [q for q in probes.PATTERNS if q.closed],
+                         ids=probes.label)
+@pytest.mark.parametrize("k", [1, 3, 300])
+def test_closed_forms_are_the_patterns(p, k):
+    """The loops counted as closed forms (``Pattern.closed``) compute their
+    closed form: the i8 chain is x & 0x7F, cond_false x, cond_true x + K,
+    while_2it x + 2K."""
+    x = probes.pattern_inputs(p, 256, "cpu", seed=k)["x"]
+    assert torch.equal(probes.CLOSED_FORMS[p.op](x, k),
+                       probes.probe_elem_plain(x, p.op, k))
