@@ -396,6 +396,11 @@ KERNEL_ENTRIES = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
                   ("probe_elem_dense_kernel", "probe_elem_kernel (warp)"),
                   ("probe_shift_warp_kernel", "probe_shift_kernel (warp)"),
                   ("probe_shift_agents_kernel", "probe_shift_kernel (warp)"),
+                  ("probe_reduce_warp_kernel", "probe_reduce_kernel (warp)"),
+                  ("probe_reduce_agents_kernel", "probe_reduce_kernel (warp)"),
+                  ("probe_lookup_warp_kernel", "probe_reduce_kernel (warp)"),
+                  ("probe_any4_warp_kernel", "probe_reduce_kernel (warp)"),
+                  ("probe_dotred_warp_kernel", "probe_dot_kernel (warp)"),
                   ("probe_elem_kernel", "probe_elem_kernel"),
                   ("probe_shift_kernel", "probe_shift_kernel"),
                   ("probe_reduce_", "probe_reduce_kernel"),
@@ -1411,16 +1416,16 @@ def probe_outputs_equal(what: str, a, b) -> int:
 
 def phase_probes_held(dev):
     """Every pattern, both layouts, against its plain version on seeded
-    inputs at a small loop count."""
+    inputs at a small loop count: every row live, and but for the tile
+    reductions the first 32 rows of each 128 live, and 130 rows."""
     from pomcpp_tpu_torch import probes
 
     n = 0
     for i, p in enumerate(probes.PATTERNS):
         cases = [(PROBE_HELD_ROWS, 128)]
-        if p.script == "sublane" or p.family in ("elem", "shift"):
-            cases.append((PROBE_HELD_ROWS, 32))
         if p.op not in probes.TILE_OPS:
-            cases.append((130, 128))       # a ragged last CTA of four warps
+            cases.append((PROBE_HELD_ROWS, 32))
+            cases.append((130, 128))       # ragged last warps and CTAs
         for rows_total, rows in cases:
             inputs = probes.pattern_inputs(p, rows_total, dev, seed=100 + i)
             want = probes.run_pattern(p, inputs, k=PROBE_HELD_K, plain=True,
@@ -2787,10 +2792,12 @@ def main() -> int:
              "probe_dot_tc_kernel": ("sublane.dot", "134 (_kernel_dot)"),
              "probe_dot_kernel": ("sublane.dotred", "206 (_kernel_dotred)")}
     # "ms" is the layout="cta" kernel's time and "warp_layout_ms" the
-    # layout="warp" kernel's, in every probe row; the elem and shift
-    # families' warp designs live in their own header.
-    warp_sources = {"probe_elem_kernel": "probe_warp.cuh",
-                    "probe_shift_kernel": "probe_warp.cuh"}
+    # layout="warp" kernel's, in every probe row; the warp designs live in
+    # their own header (any_plane's in probes.cu's tile kernel, dot's on
+    # the tensor cores).
+    warp_sources = {name: "probe_warp.cuh" for name in (
+        "probe_elem_kernel", "probe_shift_kernel", "probe_reduce_kernel",
+        "probe_dot_kernel")}
     for name, (lead, where) in lines.items():
         mine = [r for r in probe_rows if r["kernel"] == name]
         head = next(r for r in mine if r["pattern"] == lead)
@@ -2815,7 +2822,7 @@ def main() -> int:
         })
     for row in kernels:
         # A probe row's resources are the most of both layouts' kernels; the
-        # elem and shift families' warp designs' own stand beside them.
+        # warp designs' own stand beside them.
         own = dict(regs.get(row["name"], {}))
         warp = regs.get(f"{row['name']} (warp)")
         if warp:

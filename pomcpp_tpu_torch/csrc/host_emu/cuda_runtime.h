@@ -15,14 +15,17 @@
 // Between two intrinsics a lane runs alone, far ahead of the others, so a
 // missing __syncwarp() around shared memory shows as a wrong result.
 // CTA-wide barriers are not emulated: a kernel that reaches one aborts.
-// Each lane's shuffles are counted (emu::warp().shuffles, by lane index,
-// summed over every warp run), so a test can hold a kernel to the exchange
-// its design claims.
+// Each lane's shuffles and warp reductions (redux.sync: __reduce_*_sync)
+// are counted (emu::warp().shuffles and .reduxes, by lane index, summed over
+// every warp run), so a test can hold a kernel to the exchange its design
+// claims.
 #pragma once
 
 #include <ucontext.h>
 
 #include <algorithm>
+#include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -58,7 +61,8 @@ inline const char* cudaGetErrorString(cudaError_t e) {
 namespace emu {
 
 constexpr int WARP = 32;
-enum Kind { K_SHFL, K_UP, K_DOWN, K_BALLOT, K_OR, K_ADD, K_MIN, K_SYNCWARP };
+enum Kind { K_SHFL, K_UP, K_DOWN, K_XOR, K_BALLOT, K_OR, K_ADD, K_MIN, K_MAX, K_MIN_S, K_MAX_S,
+            K_SYNCWARP };
 
 struct Idx { unsigned x, y, z; };
 
@@ -73,6 +77,7 @@ struct Warp {
   const std::function<void()>* body = nullptr;
   int error = cudaSuccess;
   unsigned long long shuffles[WARP] = {};  // __shfl*_sync calls, per lane
+  unsigned long long reduxes[WARP] = {};   // __reduce_*_sync calls, per lane
 };
 
 inline Warp& warp() {
@@ -99,12 +104,16 @@ inline void resolve(Warp& w) {
   const int k = w.kind[0];
   for (int i = 1; i < WARP; ++i)
     if (w.kind[i] != k) w.error = cudaErrorLaunchFailure;
-  unsigned ballot = 0, acc_or = 0, acc_add = 0, acc_min = ~0u;
+  unsigned ballot = 0, acc_or = 0, acc_add = 0, acc_min = ~0u, acc_max = 0;
+  int min_s = INT_MAX, max_s = INT_MIN;
   for (int i = 0; i < WARP; ++i) {
     if (w.in[i]) ballot |= 1u << i;
     acc_or |= w.in[i];
     acc_add += w.in[i];
     acc_min = std::min(acc_min, w.in[i]);
+    acc_max = std::max(acc_max, w.in[i]);
+    min_s = std::min(min_s, (int)w.in[i]);
+    max_s = std::max(max_s, (int)w.in[i]);
   }
   for (int i = 0; i < WARP; ++i) {
     int src = i;
@@ -112,10 +121,19 @@ inline void resolve(Warp& w) {
       case K_SHFL: src = (int)(w.aux[i] & 31u); break;
       case K_UP: src = i - (int)w.aux[i] >= 0 ? i - (int)w.aux[i] : i; break;
       case K_DOWN: src = i + (int)w.aux[i] < WARP ? i + (int)w.aux[i] : i; break;
+      case K_XOR: src = (i ^ (int)w.aux[i]) & 31; break;
       default: break;
     }
-    w.out[i] = k == K_BALLOT ? ballot : k == K_OR ? acc_or : k == K_ADD ? acc_add
-               : k == K_MIN ? acc_min : w.in[src];
+    switch (k) {
+      case K_BALLOT: w.out[i] = ballot; break;
+      case K_OR: w.out[i] = acc_or; break;
+      case K_ADD: w.out[i] = acc_add; break;
+      case K_MIN: w.out[i] = acc_min; break;
+      case K_MAX: w.out[i] = acc_max; break;
+      case K_MIN_S: w.out[i] = (unsigned)min_s; break;
+      case K_MAX_S: w.out[i] = (unsigned)max_s; break;
+      default: w.out[i] = w.in[src]; break;
+    }
   }
 }
 
@@ -124,7 +142,10 @@ inline unsigned collective(int kind, unsigned mask, unsigned v, unsigned a) {
   Warp& w = warp();
   const int me = w.cur;
   if (mask != 0xffffffffu) w.error = cudaErrorLaunchFailure;
-  if (kind == K_SHFL || kind == K_UP || kind == K_DOWN) ++w.shuffles[me];
+  if (kind == K_SHFL || kind == K_UP || kind == K_DOWN || kind == K_XOR) ++w.shuffles[me];
+  if (kind == K_OR || kind == K_ADD || kind == K_MIN || kind == K_MAX || kind == K_MIN_S ||
+      kind == K_MAX_S)
+    ++w.reduxes[me];
   w.in[me] = v;
   w.aux[me] = a;
   w.kind[me] = kind;
@@ -214,6 +235,19 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
   return cudaSuccess;
 }
 
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline int __float_as_int(float f) { return (int)__float_as_uint(f); }
+inline float __int_as_float(int i) { return __uint_as_float((unsigned)i); }
+
 inline int __shfl_sync(unsigned m, int v, int src) {
   return (int)emu::collective(emu::K_SHFL, m, (unsigned)v, (unsigned)src);
 }
@@ -223,18 +257,48 @@ inline int __shfl_up_sync(unsigned m, int v, unsigned d) {
 inline int __shfl_down_sync(unsigned m, int v, unsigned d) {
   return (int)emu::collective(emu::K_DOWN, m, (unsigned)v, d);
 }
+inline int __shfl_xor_sync(unsigned m, int v, int lane_mask) {
+  return (int)emu::collective(emu::K_XOR, m, (unsigned)v, (unsigned)lane_mask);
+}
+// The unsigned and float overloads move the value's bits, as the card's do.
+inline unsigned __shfl_sync(unsigned m, unsigned v, int src) {
+  return emu::collective(emu::K_SHFL, m, v, (unsigned)src);
+}
+inline unsigned __shfl_xor_sync(unsigned m, unsigned v, int lane_mask) {
+  return emu::collective(emu::K_XOR, m, v, (unsigned)lane_mask);
+}
+inline float __shfl_sync(unsigned m, float v, int src) {
+  return __uint_as_float(emu::collective(emu::K_SHFL, m, __float_as_uint(v), (unsigned)src));
+}
+inline float __shfl_xor_sync(unsigned m, float v, int lane_mask) {
+  return __uint_as_float(
+      emu::collective(emu::K_XOR, m, __float_as_uint(v), (unsigned)lane_mask));
+}
 inline unsigned __ballot_sync(unsigned m, int p) {
   return emu::collective(emu::K_BALLOT, m, p != 0, 0);
 }
 inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
+// redux.sync: unsigned and signed overloads, as sm_80's.
 inline unsigned __reduce_or_sync(unsigned m, unsigned v) {
   return emu::collective(emu::K_OR, m, v, 0);
 }
 inline unsigned __reduce_add_sync(unsigned m, unsigned v) {
   return emu::collective(emu::K_ADD, m, v, 0);
 }
+inline int __reduce_add_sync(unsigned m, int v) {
+  return (int)emu::collective(emu::K_ADD, m, (unsigned)v, 0);
+}
 inline unsigned __reduce_min_sync(unsigned m, unsigned v) {
   return emu::collective(emu::K_MIN, m, v, 0);
+}
+inline int __reduce_min_sync(unsigned m, int v) {
+  return (int)emu::collective(emu::K_MIN_S, m, (unsigned)v, 0);
+}
+inline unsigned __reduce_max_sync(unsigned m, unsigned v) {
+  return emu::collective(emu::K_MAX, m, v, 0);
+}
+inline int __reduce_max_sync(unsigned m, int v) {
+  return (int)emu::collective(emu::K_MAX_S, m, (unsigned)v, 0);
 }
 inline void __syncwarp(unsigned m = 0xffffffffu) { emu::collective(emu::K_SYNCWARP, m, 0, 0); }
 
@@ -249,6 +313,13 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned n) {
   return (unsigned)(((((uint64_t)hi) << 32) | lo) >> (n & 31u));
 }
 inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
+// Byte i of the result is byte (s >> 4i) & 7 of the eight bytes y:x.
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t xy = ((uint64_t)y << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i) r |= (unsigned)((xy >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
+}
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
 
 // kernel<<<grid, block, 0, stream>>>(args...) of the real build.

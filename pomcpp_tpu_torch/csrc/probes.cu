@@ -11,14 +11,15 @@
 //           exchange and reductions go through shared memory and
 //           __syncthreads (the engine kernels' first layout, since retired,
 //           kept as an instrument);
-//   L_WARP  the design for the card.  The elem and shift families run the
-//           kernels of probe_warp.cuh: elementwise chains over a dense
-//           element mapping (the row width does not matter), plane rolls
-//           one row per warp with a shuffle only for a value that crosses a
-//           lane's four cells, prefix_or as a warp scan, and the agent
-//           patterns one row per lane.  The reduce and dotred kernels below
-//           hold one row per warp, four consecutive cells per thread, four
-//           rows per 128-thread CTA, and reduce with __shfl_sync.
+//   L_WARP  the design for the card, the kernels of probe_warp.cuh:
+//           elementwise chains over a dense element mapping (the row width
+//           does not matter), plane rolls one row per warp with a shuffle
+//           only for a value that crosses a lane's four cells, prefix_or as
+//           a warp scan, the agent patterns one row per lane; row sums and
+//           minima one row per warp on redux.sync, the one-hot reads as
+//           shared-memory lookups, any4 one warp a tile, dotred a row over
+//           8 lanes.  any_plane keeps the tile kernel below, with a warp
+//           vote before its CTA combine.
 //
 // Four kernel families: probe_elem_kernel (elementwise chains),
 // probe_shift_kernel (lane rolls and agent-array rotations),
@@ -38,41 +39,22 @@
 
 namespace pomcpp_probes {
 
-constexpr int TILE_ROWS = 128;   // rows of a tile reduction
 constexpr int TILE_NT = 1024;    // threads of the tile kernel
 constexpr int TILE_NPT = TILE_ROWS * LANES / TILE_NT;
 
-enum ReduceOp { R_SUMRED = 0, R_AXIS1_ANY, R_PACKED_SUM, R_MIN_RED4, R_ONEHOT_RD, R_ANY_PLANE,
-                R_ANY4 };
-enum DotOp { D_DOT = 0, D_DOTRED };
+// --- The CTA layout --------------------------------------------------------------
 
-// --- Layouts -------------------------------------------------------------------
-
-template <int L>
-struct Lay;
-
-template <>
-struct Lay<L_CTA> {
+// One row per CTA, one cell per thread.
+struct Cta {
   static constexpr int NPT = 1;            // cells per thread
-  static constexpr int ROWS_PER_CTA = 1;
   __device__ static int row() { return blockIdx.x; }
   __device__ static int cell(int) { return threadIdx.x; }
   __device__ static int lane() { return threadIdx.x; }   // index among a row's threads
 };
 
-template <>
-struct Lay<L_WARP> {
-  static constexpr int NPT = 4;
-  static constexpr int ROWS_PER_CTA = NT / 32;
-  __device__ static int row() { return blockIdx.x * ROWS_PER_CTA + (threadIdx.x >> 5); }
-  __device__ static int cell(int j) { return 4 * (threadIdx.x & 31) + j; }
-  __device__ static int lane() { return threadIdx.x & 31; }
-};
-
-// Shared memory of the L_CTA layout: two exchange buffers used in turn, so
+// Shared memory of the CTA layout: two exchange buffers used in turn, so
 // that one barrier per exchange is enough (a thread can be at most one
-// exchange ahead of another).  L_WARP never touches it.
-template <int L>
+// exchange ahead of another).
 struct Ctx {
   int* sm;       // 2 * LANES ints
   int phase;
@@ -86,7 +68,7 @@ struct Ctx {
 
 // Circular roll along the row: out[c] = in[(c - S) mod 128] (L_CTA).
 template <int S, typename T>
-__device__ __forceinline__ void roll(Ctx<L_CTA>& cx, T (&v)[1]) {
+__device__ __forceinline__ void roll(Ctx& cx, T (&v)[1]) {
   int* b = cx.next();
   b[threadIdx.x] = (int)v[0];
   __syncthreads();
@@ -107,7 +89,7 @@ struct OpMax {
 // Reduction over the 128 cells of a row; every thread of the row gets the
 // result.  `part` is the thread's own partial over its NPT cells.
 template <typename Op, typename V>
-__device__ __forceinline__ V row_reduce(Ctx<L_CTA>& cx, V part) {
+__device__ __forceinline__ V row_reduce(Ctx& cx, V part) {
   V* b = reinterpret_cast<V*>(cx.next());
   const int l = threadIdx.x;
   b[l] = part;
@@ -120,33 +102,18 @@ __device__ __forceinline__ V row_reduce(Ctx<L_CTA>& cx, V part) {
   return b[0];
 }
 
-template <typename Op, typename V>
-__device__ __forceinline__ V row_reduce(Ctx<L_WARP>&, V part) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) part = Op::f(part, __shfl_xor_sync(FULL, part, m));
-  return part;
-}
-
 // Agent arrays: every thread of a row holds agent (lane & 3)'s value, so the
 // four values are replicated; `ag_get` reads agent `src`'s value (src may
 // differ from thread to thread).
-__device__ __forceinline__ int ag_get(Ctx<L_CTA>& cx, int ag, int src) {
+__device__ __forceinline__ int ag_get(Ctx& cx, int ag, int src) {
   int* b = cx.next();
   if (threadIdx.x < AGENTS) b[threadIdx.x] = ag;
   __syncthreads();
   return b[src];
 }
 
-__device__ __forceinline__ int ag_get(Ctx<L_WARP>&, int ag, int src) {
-  return __shfl_sync(FULL, ag, src);
-}
-
-__device__ __forceinline__ bool row_any(Ctx<L_CTA>&, bool pred) {
+__device__ __forceinline__ bool row_any(Ctx&, bool pred) {
   return __syncthreads_or(pred) != 0;
-}
-
-__device__ __forceinline__ bool row_any(Ctx<L_WARP>&, bool pred) {
-  return __any_sync(FULL, pred) != 0;
 }
 
 // --- Elementwise chains ------------------------------------------------------------
@@ -158,7 +125,7 @@ template <int OP, typename T>
 __global__ void __launch_bounds__(NT)
 probe_elem_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows, int width, int k,
                   int rows, int tile) {
-  using Y = Lay<L_CTA>;
+  using Y = Cta;
   const int row = Y::row();
   if (row >= n_rows) return;
   const bool live = (row % tile) < rows;
@@ -184,10 +151,10 @@ probe_elem_kernel(const T* __restrict__ in, T* __restrict__ out, int n_rows, int
 // --- Shifts and rotations ------------------------------------------------------------
 
 template <int SH>
-__device__ __forceinline__ void prefix_round(Ctx<L_CTA>& cx, int (&p)[1]) {
+__device__ __forceinline__ void prefix_round(Ctx& cx, int (&p)[1]) {
   int r[1] = {p[0]};
   roll<SH>(cx, r);
-  p[0] |= (Lay<L_CTA>::cell(0) >= SH ? r[0] : 0);
+  p[0] |= (Cta::cell(0) >= SH ? r[0] : 0);
 }
 
 // The shift family in the CTA layout (pw::probe_shift_warp_kernel and
@@ -200,10 +167,10 @@ __global__ void __launch_bounds__(NT)
 probe_shift_kernel(const T* __restrict__ p_in, T* __restrict__ p_out,
                    const int32_t* __restrict__ a_in, int32_t* __restrict__ a_out, int n_rows,
                    int k, int rows, int tile) {
-  using Y = Lay<L_CTA>;
+  using Y = Cta;
   constexpr int NPT = Y::NPT;
   __shared__ int sm[2 * LANES];
-  Ctx<L_CTA> cx(sm);
+  Ctx cx(sm);
   const int row = Y::row();
   if (row >= n_rows) return;   // uniform per CTA
   const bool live = (row % tile) < rows;
@@ -298,19 +265,21 @@ probe_shift_kernel(const T* __restrict__ p_in, T* __restrict__ p_out,
 
 // --- Row reductions --------------------------------------------------------------------
 
-// Replaces _kernel_sumred (sublane), onehot_rd (patterns) and axis1_any,
-// packed_sum and min_red4 (reductions).  Bound by the reduction's exchange:
-// L_CTA runs a shared-memory tree with a barrier per level (eight barriers a
-// reduction), L_WARP five shuffle rounds after a local combine of four cells.
-template <int OP, int L>
+// The reduce family in the CTA layout: sumred (sublane), onehot_rd
+// (patterns), axis1_any, packed_sum and min_red4 (reductions), each
+// reduction a shared-memory tree with a barrier per level (eight barriers a
+// reduction), the one-hot reads as the Pallas bodies write them
+// (pw::probe_reduce_warp_kernel, probe_reduce_agents_kernel and
+// probe_lookup_warp_kernel are the layout="warp" designs).
+template <int OP>
 __global__ void __launch_bounds__(NT)
 probe_reduce_kernel(const int32_t* __restrict__ p_in, int32_t* __restrict__ p_out,
                     const int32_t* __restrict__ a_in, int32_t* __restrict__ a_out, int n_rows,
                     int k, int rows, int tile) {
-  using Y = Lay<L>;
+  using Y = Cta;
   constexpr int NPT = Y::NPT;
   __shared__ int sm[2 * LANES];
-  Ctx<L> cx(sm);
+  Ctx cx(sm);
   const int row = Y::row();
   if (row >= n_rows) return;
   const bool live = (row % tile) < rows;
@@ -384,8 +353,9 @@ probe_reduce_kernel(const int32_t* __restrict__ p_in, int32_t* __restrict__ p_ou
 
 // Reductions over a whole tile of 128 rows (jnp.any over the block): one
 // tile per 1024-thread CTA, 16 cells per thread.  L_CTA reduces with the
-// barrier's own OR; L_WARP votes within each warp and combines the 32 warp
-// flags through shared memory.
+// barrier's own OR; L_WARP (any_plane's warp design; any4's is
+// pw::probe_any4_warp_kernel) votes within each warp and combines the 32
+// warp flags through shared memory.
 template <int L>
 __device__ __forceinline__ bool tile_any(bool pred, int* flags) {
   if constexpr (L == L_CTA) return __syncthreads_or(pred) != 0;
@@ -431,20 +401,18 @@ probe_reduce_tile_kernel(const int32_t* __restrict__ p_in, int32_t* __restrict__
 
 // D_DOTRED: x i32[n_rows, 128]; 8 x { r = dot(x & 0xFFFF, W[:, 0]) +
 // (dot(x >> 16, W[:, 0]) << 16); x += r } per iteration, the two dots in f32
-// (exact below 2^24).  Replaces _kernel_dotred (sublane :175).  W[:, 0] is
-// copied to shared memory once per CTA; a row's two dots are row
-// reductions (shared memory and barriers in L_CTA, shuffles in L_WARP).
-// Bound by operations: per element and round two one-column products and
-// six integer operations.
-template <int L>
+// (exact below 2^24).  Replaces _kernel_dotred (sublane :175) in the CTA
+// layout (pw::probe_dotred_warp_kernel is the layout="warp" design).
+// W[:, 0] is copied to shared memory once per CTA; a row's two dots are row
+// reductions through shared memory and barriers.
 __global__ void __launch_bounds__(NT)
 probe_dot_kernel(const int32_t* __restrict__ xin, const float* __restrict__ w,
                  int32_t* __restrict__ xout, int n_rows, int k, int rows, int tile) {
-  using Y = Lay<L>;
+  using Y = Cta;
   constexpr int NPT = Y::NPT;
   __shared__ float wc_all[LANES];
   __shared__ int sm[2 * LANES];
-  Ctx<L> cx(sm);
+  Ctx cx(sm);
   wc_all[threadIdx.x] = w[threadIdx.x * LANES];
   __syncthreads();
   const int row = Y::row();
@@ -655,15 +623,11 @@ probe_dot_tc_kernel(const float* __restrict__ x_in, const float* __restrict__ w,
 
 // --- Launchers -----------------------------------------------------------------------------
 
-template <int L>
-static int row_grid(int n_rows) {
-  return (n_rows + Lay<L>::ROWS_PER_CTA - 1) / Lay<L>::ROWS_PER_CTA;
-}
 
 template <int OP, typename T>
 static int launch_elem_cta(const void* in, void* out, int n_rows, int width, int k, int rows,
                            int tile, cudaStream_t s) {
-  probe_elem_kernel<OP, T><<<row_grid<L_CTA>(n_rows), NT, 0, s>>>((const T*)in, (T*)out, n_rows,
+  probe_elem_kernel<OP, T><<<n_rows, NT, 0, s>>>((const T*)in, (T*)out, n_rows,
                                                                    width, k, rows, tile);
   return (int)cudaGetLastError();
 }
@@ -671,39 +635,34 @@ static int launch_elem_cta(const void* in, void* out, int n_rows, int width, int
 template <int OP, typename T>
 static int launch_shift_cta(const void* p_in, void* p_out, const int32_t* a_in, int32_t* a_out,
                             int n_rows, int k, int rows, int tile, cudaStream_t s) {
-  probe_shift_kernel<OP, T><<<row_grid<L_CTA>(n_rows), NT, 0, s>>>(
+  probe_shift_kernel<OP, T><<<n_rows, NT, 0, s>>>(
       (const T*)p_in, (T*)p_out, a_in, a_out, n_rows, k, rows, tile);
   return (int)cudaGetLastError();
 }
 
 template <int OP>
-static int launch_reduce(int layout, const int32_t* p_in, int32_t* p_out, const int32_t* a_in,
-                         int32_t* a_out, int n_rows, int k, int rows, int tile, cudaStream_t s) {
-  if (layout == L_CTA)
-    probe_reduce_kernel<OP, L_CTA><<<row_grid<L_CTA>(n_rows), NT, 0, s>>>(
-        p_in, p_out, a_in, a_out, n_rows, k, rows, tile);
-  else
-    probe_reduce_kernel<OP, L_WARP><<<row_grid<L_WARP>(n_rows), NT, 0, s>>>(
-        p_in, p_out, a_in, a_out, n_rows, k, rows, tile);
+static int launch_reduce_cta(const int32_t* p_in, int32_t* p_out, const int32_t* a_in,
+                             int32_t* a_out, int n_rows, int k, int rows, int tile,
+                             cudaStream_t s) {
+  probe_reduce_kernel<OP><<<n_rows, NT, 0, s>>>(p_in, p_out, a_in, a_out, n_rows, k,
+                                                          rows, tile);
   return (int)cudaGetLastError();
 }
 
-template <int OP>
-static int launch_tile(int layout, const int32_t* p_in, int32_t* p_out, const int32_t* a_in,
+// Both layouts of any_plane; any4 in the CTA layout only, so that only
+// any_plane instantiates the L_WARP tile kernel.
+template <int OP, int L>
+static int launch_tile(const int32_t* p_in, int32_t* p_out, const int32_t* a_in,
                        int32_t* a_out, int n_rows, int k, cudaStream_t s) {
   if (n_rows % TILE_ROWS != 0 || !a_in || !a_out) return ERR_BAD_ARGUMENT;
-  const int grid = n_rows / TILE_ROWS;
-  if (layout == L_CTA)
-    probe_reduce_tile_kernel<OP, L_CTA><<<grid, TILE_NT, 0, s>>>(p_in, p_out, a_in, a_out, k);
-  else
-    probe_reduce_tile_kernel<OP, L_WARP><<<grid, TILE_NT, 0, s>>>(p_in, p_out, a_in, a_out, k);
+  probe_reduce_tile_kernel<OP, L><<<n_rows / TILE_ROWS, TILE_NT, 0, s>>>(p_in, p_out, a_in,
+                                                                          a_out, k);
   return (int)cudaGetLastError();
 }
 
-template <int L>
-static int launch_dotred(const int32_t* x_in, const float* w, int32_t* x_out, int n_rows, int k,
-                         int rows, int tile, cudaStream_t s) {
-  probe_dot_kernel<L><<<row_grid<L>(n_rows), NT, 0, s>>>(x_in, w, x_out, n_rows, k, rows, tile);
+static int launch_dotred_cta(const int32_t* x_in, const float* w, int32_t* x_out, int n_rows,
+                             int k, int rows, int tile, cudaStream_t s) {
+  probe_dot_kernel<<<n_rows, NT, 0, s>>>(x_in, w, x_out, n_rows, k, rows, tile);
   return (int)cudaGetLastError();
 }
 
@@ -757,16 +716,21 @@ int pomcpp_probe_reduce(int op, int layout, const int32_t* p_in, int32_t* p_out,
   cudaStream_t s = (cudaStream_t)stream;
   if (layout != L_CTA && layout != L_WARP) return ERR_BAD_ARGUMENT;
   if (tile < 1) return ERR_BAD_ARGUMENT;
+  if (op == R_ANY_PLANE)
+    return layout == L_CTA
+               ? launch_tile<R_ANY_PLANE, L_CTA>(p_in, p_out, a_in, a_out, n_rows, k, s)
+               : launch_tile<R_ANY_PLANE, L_WARP>(p_in, p_out, a_in, a_out, n_rows, k, s);
+  if (layout == L_WARP)
+    return pw::probe_reduce(op, p_in, p_out, a_in, a_out, n_rows, k, rows, tile, s);
 #define REDUCE(OP) \
-  return launch_reduce<OP>(layout, p_in, p_out, a_in, a_out, n_rows, k, rows, tile, s)
+  return launch_reduce_cta<OP>(p_in, p_out, a_in, a_out, n_rows, k, rows, tile, s)
   switch (op) {
     case R_SUMRED: REDUCE(R_SUMRED);
     case R_AXIS1_ANY: REDUCE(R_AXIS1_ANY);
     case R_PACKED_SUM: REDUCE(R_PACKED_SUM);
     case R_MIN_RED4: REDUCE(R_MIN_RED4);
     case R_ONEHOT_RD: REDUCE(R_ONEHOT_RD);
-    case R_ANY_PLANE: return launch_tile<R_ANY_PLANE>(layout, p_in, p_out, a_in, a_out, n_rows, k, s);
-    case R_ANY4: return launch_tile<R_ANY4>(layout, p_in, p_out, a_in, a_out, n_rows, k, s);
+    case R_ANY4: return launch_tile<R_ANY4, L_CTA>(p_in, p_out, a_in, a_out, n_rows, k, s);
   }
 #undef REDUCE
   return ERR_BAD_ARGUMENT;
@@ -784,8 +748,8 @@ int pomcpp_probe_dot(int op, int layout, const void* x_in, const float* w, void*
     case D_DOTRED: {
       const int32_t* xi = (const int32_t*)x_in;
       int32_t* xo = (int32_t*)x_out;
-      return layout == L_CTA ? launch_dotred<L_CTA>(xi, w, xo, n_rows, k, rows, tile, s)
-                             : launch_dotred<L_WARP>(xi, w, xo, n_rows, k, rows, tile, s);
+      return layout == L_CTA ? launch_dotred_cta(xi, w, xo, n_rows, k, rows, tile, s)
+                             : pw::probe_dotred(xi, w, xo, n_rows, k, rows, tile, s);
     }
   }
   return ERR_BAD_ARGUMENT;

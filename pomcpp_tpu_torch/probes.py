@@ -42,8 +42,19 @@ shift):
   ``prefix_or`` a warp scan of five ``__shfl_up_sync`` rounds; the agent
   patterns (``whole4``, ``rot4_all``, ``colslice``) 32 rows a warp, a row's
   four agents in one lane's registers, no shuffle;
-* reduce, ``dotred`` -- one row per warp, four cells a thread, reductions
-  by ``__shfl_xor_sync``.
+* reduce   -- ``sumred`` and ``min_red4`` one row per warp, four cells a
+  lane, a row's sum or minimum one ``redux.sync`` (``__reduce_add_sync``,
+  ``__reduce_min_sync``) and no shuffle, the row's agents in every lane's
+  registers; ``axis1_any`` 32 rows a warp, a row's agents in one lane;
+  ``any4`` one warp a tile, 16 agent values a lane, one ``__any_sync`` an
+  iteration; ``onehot_rd`` and ``packed_sum`` as the lookups they are (a
+  one-hot max or packed sum over the row reads one cell an agent): 32 rows
+  a warp, the rows' planes in the warp's shared memory, one load a lookup;
+  ``any_plane`` keeps the CTA's tile kernel (a warp vote, then the CTA);
+* ``dotred`` -- a row over 8 lanes, 16 cells a lane, the 16-bit halves made
+  floats by a byte permute (low half) or a shift-and-add (high half) and an
+  FADD (no int -> float conversion), 16 FFMAs a half in the lane and three
+  ``__shfl_xor_sync`` rounds across the 8.
 
 ``dot`` takes no layout: a warpgroup of its kernel owns 64 rows.
 ``rows`` / ``tile`` restrict the work to the first ``rows`` rows of every
@@ -67,15 +78,22 @@ clock per SM: four schedulers, one warp instruction a clock each), its lane
 shuffles over the shuffle rate (32 lanes a clock per SM) and its bytes
 (every input read once, every output written once) over the memory rate;
 ``dot`` counts its tensor-core passes instead of instructions.  The counts
-(``Pattern.ops``, ``Pattern.shuffles``) are the fewest the function needs
-in the engine's row layout, op by op: a compare, a select with a constant
-arm, a three-input add (IADD3) or a three-input logic op (LOP3) is one
-instruction, a roll's move within a lane is none, a value that crosses a
-lane's four cells is one shuffle, and every shuffle also takes an issue
-slot.  No identity across ops is used but those nvcc is seen to use (in
-the SASS): a roll's adds of i between two lane crossings of a value fold
-into one, and the loops of the i8 ``chain``, ``cond_*`` and ``while_2it``
-fold to a closed form, counted once per element whatever K.
+(``Pattern.ops``, ``Pattern.shuffles``) are the fewest the function needs,
+op by op: a compare, a select with a constant arm, a three-input add
+(IADD3) or a three-input logic op (LOP3) is one instruction, a roll's move
+within a lane is none, a value that crosses a lane's four cells (the
+engine's row layout) is one shuffle, and every shuffle also takes an issue
+slot.  A reduction of n values is its in-lane combines ((n - 1) / 2 IADD3
+for a sum; an FFMA is a product and its accumulation) and has no shuffle
+term, since a row could be reduced inside one lane; a lookup of one cell
+at a known position is one load.  Every iteration keeps its own reduction,
+as the Pallas body runs it: no closed form across rounds or iterations.  No
+identity across ops is used but those nvcc is seen to use (in the SASS) or
+a kernel here uses: a roll's adds of i between two lane crossings of a
+value fold into one; the loops of the i8 ``chain``, ``cond_*`` and
+``while_2it`` fold to a closed form, counted once per element whatever K;
+``min_red4``'s first set cell, in cell order, is its minimum, so a select a
+cell is its reduction.
 """
 
 from __future__ import annotations
@@ -386,33 +404,48 @@ def _probe_shift_cuda(plane, agents, op, k, layout, rows, tile):
                                op, k, layout, rows, tile)
 
 
-def _probe_reduce_cuda(plane, agents, op, k, layout, rows, tile):
+def _probe_reduce_launch(lib, stream, plane, agents, op, k, layout, rows,
+                         tile):
+    """As ``_probe_elem_launch``, for the reduce family."""
     lay = _launch_args(layout, k, rows, tile)
-    plane, agents, a_out, n = _plane_and_agents(plane, agents, I32, "cuda")
+    plane, agents, a_out, n = _plane_and_agents(
+        plane, agents, I32, "cpu" if stream is None else "cuda")
     p_out = torch.empty_like(plane)
-    lib = _ext.probes_lib()
     _ext.check(lib.pomcpp_probe_reduce(
         REDUCE_OPS[op], lay, plane.data_ptr(), p_out.data_ptr(),
         None if agents is None else agents.data_ptr(),
         None if agents is None else a_out.data_ptr(), n, k, rows, tile,
-        _stream()), lib.pomcpp_probes_error_string)
-    _ext.LAUNCHES["probe_reduce_kernel"] += 1
+        stream), lib.pomcpp_probes_error_string)
+    if stream is not None:
+        _ext.LAUNCHES["probe_reduce_kernel"] += 1
     return p_out if agents is None else (p_out, a_out)
 
 
-def _probe_dot_cuda(x, w, op, k, layout, rows, tile):
+def _probe_reduce_cuda(plane, agents, op, k, layout, rows, tile):
+    return _probe_reduce_launch(_ext.probes_lib(), _stream(), plane, agents,
+                                op, k, layout, rows, tile)
+
+
+def _probe_dot_launch(lib, stream, x, w, op, k, layout, rows, tile):
+    """As ``_probe_elem_launch``, for the dot family."""
     lay = _launch_args(layout, k, rows, tile)
     n = x.shape[0]
+    device_type = "cpu" if stream is None else "cuda"
     x = _ready(x, torch.float32 if op == "dot" else I32, (n, LANES), "x",
-               "cuda")
-    w = _ready(w, torch.float32, (LANES, LANES), "w", "cuda")
+               device_type)
+    w = _ready(w, torch.float32, (LANES, LANES), "w", device_type)
     out = torch.empty_like(x)
-    lib = _ext.probes_lib()
     _ext.check(lib.pomcpp_probe_dot(
         DOT_OPS[op], lay, x.data_ptr(), w.data_ptr(), out.data_ptr(), n, k,
-        rows, tile, _stream()), lib.pomcpp_probes_error_string)
-    _ext.LAUNCHES[DOT_KERNEL[op]] += 1
+        rows, tile, stream), lib.pomcpp_probes_error_string)
+    if stream is not None:
+        _ext.LAUNCHES[DOT_KERNEL[op]] += 1
     return out
+
+
+def _probe_dot_cuda(x, w, op, k, layout, rows, tile):
+    return _probe_dot_launch(_ext.probes_lib(), _stream(), x, w, op, k,
+                             layout, rows, tile)
 
 
 def _place(device, *tensors):
@@ -524,11 +557,18 @@ def _patterns():
         # tensor cores (its bound is the tensor-core passes, ``tensor_ops``).
         Pattern("sublane", "dot", "dot", "dot", 200, 32, 32 * 129,
                 torch.float32),
-        # The reduce and dotred counts are as the Pallas bodies write them.
-        Pattern("sublane", "sumred", "reduce", "sumred", 200, 8, 16),
-        # Per element, 8 rounds of: & and >>, two int -> f32 conversions,
-        # two FMAs into the one column the script reads, the add of r.
-        Pattern("sublane", "dotred", "dot", "dotred", 200, 8, 8 * 10),
+        # sumred: 8 rounds of the row sum (127 adds of 128 cells, 64 IADD3:
+        # half an instruction an element) and its add back into every cell.
+        Pattern("sublane", "sumred", "reduce", "sumred", 200, 8,
+                8 * (64 / 128 + 1)),
+        # dotred, per element and round: each 16-bit half made a float by
+        # one instruction (lo: a byte permute under 0x4B00; hi: (x >> 16) +
+        # 0x4B400000, a shift-and-add) and an FADD; an FFMA a half into the
+        # column the script reads (the product and the sum's combine); the
+        # add of r.  Per row and round: the two truncating casts and lo +
+        # (hi << 16).
+        Pattern("sublane", "dotred", "dot", "dotred", 200, 8,
+                8 * (7 + 3 / 128)),
     ]
     for dtype in INT_TYPES:
         if dtype == torch.int8:
@@ -560,12 +600,24 @@ def _patterns():
                                 ("push", 3, 5 / 4), ("push_hoist", 3, 5 / 4)):
         out.append(Pattern("patterns", name, "shift", name, 300, 1, ops,
                            shuffles=shuffles))
+    # onehot_rd: a lookup an agent (a one-hot max over the row is one cell):
+    # the range compare, the load, the max with 0, the select of 0 off the
+    # row, & 0xFF: 20 a row of 128 cells.
     out.append(Pattern("patterns", "onehot_rd", "reduce", "onehot_rd", 300, 1,
-                       12))
+                       20 / 128))
     out.append(Pattern("reductions", "baseline", "elem", "baseline", 300, 1,
                        32))
-    for name, ops in (("any_plane", 4), ("any4", 4), ("axis1_any", 4),
-                      ("packed_sum", 15), ("min_red4", 16)):
+    # any_plane: (p & 7) == 7, the OR, the select, the add.
+    # any4, per agent value: the test, the add, and a tile's OR of 512
+    # flags (256 LOP3) and select.  axis1_any, per row of four agents: as
+    # rot4_all.  packed_sum: a lookup an agent (field j of the packed sum is
+    # p[a_j & 127] & 15): & 127, the load, & 15, the add: 16 a row.
+    # min_red4, per cell and agent: the bit's test and the select of the
+    # cell's index, a select chain in cell order being the minimum; per
+    # row, the four masked minima (4), their OR (2) and four adds.
+    for name, ops in (("any_plane", 4), ("any4", 2 + 257 / 512),
+                      ("axis1_any", 11 / 4), ("packed_sum", 16 / 128),
+                      ("min_red4", 4 * 2 + 10 / 128)):
         out.append(Pattern("reductions", name, "reduce", name, 300, 1, ops))
     # rot4_all: a row's (a & 7) != 7 (4 LOP3 with a predicate out), their
     # AND (2), 1 or 2 (1), four adds: 11 a row of four agents.

@@ -17,11 +17,13 @@ Three kinds of test:
   ``test_torch_fsm.py``, ``test_torch_fused_step.py`` and
   ``test_torch_env.py`` hold against the JAX functions;
 * the probes' layout="warp" designs (``csrc/probe_warp.cuh``) through a
-  small C binding: every elem and shift pattern against its plain
-  version, bit for bit, and each plane pattern's shuffles per lane counted
+  small C binding: every elem, shift, reduce and ``dotred`` pattern but
+  ``any_plane`` (which needs the CTA) against its plain version, bit for
+  bit, and each pattern's shuffles and warp reductions per lane counted
   against the exchange its design claims;
 * the emulator itself: it must report an intrinsic reached by only part of
-  a warp instead of hanging or passing.
+  a warp instead of hanging or passing, and its signed reductions and
+  float shuffles must be the card's.
 """
 
 import ctypes
@@ -763,6 +765,45 @@ def test_host_emulation_reports_a_divergent_intrinsic(tmp_path_factory):
     assert lib.run(1, out) != 0
 
 
+COLLECTIVES = r"""
+#include <cuda_runtime.h>
+// Per lane: signed min and max of lane - 16, unsigned min of the same bits,
+// the float lane / 4 from the lane across (xor 5) and from lane 3.
+__global__ void collectives(int* out, float* f) {
+  const int t = threadIdx.x & 31;
+  out[4 * t] = __reduce_min_sync(0xffffffffu, t - 16);
+  out[4 * t + 1] = __reduce_max_sync(0xffffffffu, t - 16);
+  out[4 * t + 2] = (int)__reduce_min_sync(0xffffffffu, (unsigned)(t - 16));
+  out[4 * t + 3] = (int)__reduce_max_sync(0xffffffffu, (unsigned)t);
+  f[2 * t] = __shfl_xor_sync(0xffffffffu, 0.25f * t, 5);
+  f[2 * t + 1] = __shfl_sync(0xffffffffu, __int_as_float(0x4B000000 | t) - 8388608.f, 3);
+}
+extern "C" int run(int* out, float* f, unsigned long long* reduxes) {
+  // The emulator's warp is one object for every host build in the process.
+  for (int l = 0; l < 32; ++l) emu::warp().reduxes[l] = 0;
+  POMCPP_LAUNCH(collectives, 1, 32, 0, out, f);
+  for (int l = 0; l < 32; ++l) reduxes[l] = emu::warp().reduxes[l];
+  return cudaGetLastError();
+}
+"""
+
+
+def test_host_emulation_reduces_signed_and_shuffles_floats(tmp_path_factory):
+    """The card's overloads: __reduce_min/max_sync on int order negatives
+    below positives (the unsigned ones do not), a float shuffled by
+    __shfl_xor_sync / __shfl_sync keeps its bits; each redux.sync counts."""
+    src = tmp_path_factory.mktemp("collectives") / "collectives.cu"
+    src.write_text(COLLECTIVES)
+    lib = _host_build(tmp_path_factory, src, "libcollectives.so")
+    out, f = (ctypes.c_int * 128)(), (ctypes.c_float * 64)()
+    reduxes = (ctypes.c_ulonglong * 32)()
+    assert lib.run(out, f, reduxes) == 0
+    assert [out[4 * t:4 * t + 4] for t in range(32)] == [[-16, 15, 0, 31]] * 32
+    assert list(f[0::2]) == [0.25 * (t ^ 5) for t in range(32)]
+    assert list(f[1::2]) == [3.0] * 32
+    assert list(reduxes) == [4] * 32
+
+
 # --- the probes' warp designs on the CPU ------------------------------------------
 
 PROBE_BINDING = r"""
@@ -781,12 +822,30 @@ int pomcpp_probe_shift(int op, int layout, int elem_size, const void* p_in, void
   if (layout != L_WARP) return ERR_BAD_ARGUMENT;
   return pw::probe_shift(op, elem_size, p_in, p_out, a_in, a_out, n_rows, k, rows, tile, stream);
 }
+int pomcpp_probe_reduce(int op, int layout, const int32_t* p_in, int32_t* p_out,
+                        const int32_t* a_in, int32_t* a_out, int n_rows, int k, int rows,
+                        int tile, void* stream) {
+  if (layout != L_WARP) return ERR_BAD_ARGUMENT;
+  return pw::probe_reduce(op, p_in, p_out, a_in, a_out, n_rows, k, rows, tile, stream);
+}
+int pomcpp_probe_dot(int op, int layout, const void* x_in, const float* w, void* x_out,
+                     int n_rows, int k, int rows, int tile, void* stream) {
+  if (layout != L_WARP || op != D_DOTRED) return ERR_BAD_ARGUMENT;
+  return pw::probe_dotred((const int32_t*)x_in, w, (int32_t*)x_out, n_rows, k, rows, tile,
+                          stream);
+}
 const char* pomcpp_probes_error_string(int err) { return cudaGetErrorString(err); }
-// Each lane's shuffles since the last call, by lane index.
+// Each lane's shuffles and warp reductions since the last call, by lane index.
 void pomcpp_probe_shuffles(unsigned long long* out) {
   for (int l = 0; l < 32; ++l) {
     out[l] = emu::warp().shuffles[l];
     emu::warp().shuffles[l] = 0;
+  }
+}
+void pomcpp_probe_reduxes(unsigned long long* out) {
+  for (int l = 0; l < 32; ++l) {
+    out[l] = emu::warp().reduxes[l];
+    emu::warp().reduxes[l] = 0;
   }
 }
 }
@@ -800,22 +859,35 @@ def probe_lib(tmp_path_factory):
     lib = _ext.bind_probes(_host_build(tmp_path_factory, src,
                                        "libprobes_host.so"))
     lib.pomcpp_probe_shuffles.argtypes = [ctypes.c_void_p]
+    lib.pomcpp_probe_reduxes.argtypes = [ctypes.c_void_p]
     return lib
 
 
-def _shuffles(lib):
+def _lane_counts(fn):
     counts = (ctypes.c_ulonglong * 32)()
-    lib.pomcpp_probe_shuffles(counts)
+    fn(counts)
     return list(counts)
+
+
+def _shuffles(lib):
+    return _lane_counts(lib.pomcpp_probe_shuffles)
+
+
+def _reduxes(lib):
+    return _lane_counts(lib.pomcpp_probe_reduxes)
 
 
 def _warp_run(lib, p, inputs, k, rows=128, tile=128):
     if p.family == "elem":
         return probes._probe_elem_launch(lib, None, inputs["x"], p.op, k,
                                          "warp", rows, tile)
-    return probes._probe_shift_launch(lib, None, inputs["plane"],
-                                      inputs["agents"], p.op, k, "warp", rows,
-                                      tile)
+    if p.family == "dot":
+        return probes._probe_dot_launch(lib, None, inputs["x"], inputs["w"],
+                                        p.op, k, "warp", rows, tile)
+    launch = probes._probe_shift_launch if p.family == "shift" \
+        else probes._probe_reduce_launch
+    return launch(lib, None, inputs["plane"], inputs["agents"], p.op, k,
+                  "warp", rows, tile)
 
 
 def _same_probe(got, want, what):
@@ -825,7 +897,11 @@ def _same_probe(got, want, what):
         assert a.dtype == b.dtype and torch.equal(a, b), what
 
 
-WARP_PATTERNS = [p for p in probes.PATTERNS if p.family in ("elem", "shift")]
+# Every pattern with a warp design of its own: all but ``dot`` (tensor
+# cores, no layout) and ``any_plane`` (the CTA's tile kernel); the tile
+# reductions take whole tiles (``test_probe_warp_any4_source_matches_plain``).
+WARP_PATTERNS = [p for p in probes.PATTERNS
+                 if p.op not in ("dot", "any_plane") and p.op not in probes.TILE_OPS]
 # (rows in all, rows, tile, offset): every row live; the first 32 rows of
 # each 128; a row count that fills neither the elem kernel's 128-element
 # warps nor the agent kernel's 32-row warps nor the plane kernel's 4-row
@@ -847,9 +923,10 @@ def _offset_view(t):
 @pytest.mark.parametrize("case", sorted(PROBE_CASES))
 @pytest.mark.parametrize("p", WARP_PATTERNS, ids=probes.label)
 def test_probe_warp_source_matches_plain(probe_lib, p, case):
-    """Every elem and shift pattern of layout="warp" (the dense element
-    mapping, the plane rolls, the warp scan, the agent rows) against its
-    plain version, bit for bit, K = 3."""
+    """Every pattern of layout="warp" (the dense element mapping, the plane
+    rolls, the warp scan, the agent rows, the redux.sync reductions, the
+    lookups, dotred over 8 lanes) against its plain version, bit for bit,
+    K = 3."""
     n, rows, tile, offset = PROBE_CASES[case]
     inputs = probes.pattern_inputs(p, n, "cpu", seed=len(probes.label(p)) + n)
     given = {key: _offset_view(t) if offset and t is not None else t
@@ -877,31 +954,115 @@ def test_probe_warp_chain_at_every_width_and_type(probe_lib, width, dtype):
         assert torch.equal(got[3::4], x[3::4])
 
 
+# redux.sync (__reduce_*_sync) a lane issues per row and iteration.
+REDUX_PER_ROW = {"sublane.sumred": 8, "reductions.min_red4": 4}
+
+
 @pytest.mark.parametrize("name,per_iter", [
     ("sublane.roll", 32), ("i16.roll[int32]", 20), ("i16.roll[int8]", 20),
     ("patterns.push", 5), ("patterns.push_hoist", 5),
     ("reductions.prefix_or", 5), ("patterns.colslice", 0),
     ("patterns.whole4", 0), ("reductions.rot4_all", 0),
+    ("sublane.sumred", 0), ("reductions.min_red4", 0),
+    ("sublane.dotred", 12), ("reductions.axis1_any", 0),
+    ("reductions.any4", 0), ("patterns.onehot_rd", 0),
+    ("reductions.packed_sum", 0),
 ])
 def test_probe_warp_shuffles_only_across_lane_groups(probe_lib, name,
                                                      per_iter):
     """Shuffles a lane issues per row and iteration: roll by 1 one (not
     four), roll by 117 four, prefix_or the five rounds of its warp scan (not
-    the 28 of seven full rolls), the agent patterns none; rows that are not
-    live issue none."""
+    the 28 of seven full rolls), dotred 48 a warp of four rows (three rounds
+    a half and a round, not 80), the agent rows, the redux.sync reductions
+    and the lookups none; sumred reduces with 8 redux.sync a round's row
+    and iteration, min_red4 with 4, every other pattern with none; rows
+    that are not live issue none."""
     p = next(q for q in probes.PATTERNS if probes.label(q) == name)
     k, n = 3, 256
+    redux = REDUX_PER_ROW.get(name, 0)
     inputs = probes.pattern_inputs(p, n, "cpu", seed=1)
     _shuffles(probe_lib)
+    _reduxes(probe_lib)
     _warp_run(probe_lib, p, inputs, k)
     assert _shuffles(probe_lib) == [n * k * per_iter] * 32
+    assert _reduxes(probe_lib) == [n * k * redux] * 32
+    if p.op in probes.TILE_OPS:
+        return                        # whole tiles only
     _warp_run(probe_lib, p, inputs, k, rows=32)
     assert _shuffles(probe_lib) == [n // 4 * k * per_iter] * 32
+    assert _reduxes(probe_lib) == [n // 4 * k * redux] * 32
+
+
+@pytest.mark.parametrize("n,offset", [(128, 0), (384, 0), (256, 1)])
+def test_probe_warp_any4_source_matches_plain(probe_lib, n, offset):
+    """any4 of layout="warp" (one warp a tile's 512 agents, four warps
+    copying its plane) against its plain version, bit for bit, K = 3, on
+    whole tiles; with an offset, the element-by-element path."""
+    p = next(q for q in probes.PATTERNS if q.op == "any4")
+    inputs = probes.pattern_inputs(p, n, "cpu", seed=n + offset)
+    # Hits in some tiles only: tile 0's agents all miss at first.
+    inputs["agents"][:128] &= ~1
+    given = {key: _offset_view(t) if offset else t
+             for key, t in inputs.items()}
+    got = _warp_run(probe_lib, p, given, 3)
+    _same_probe(got, probes.run_pattern(p, inputs, k=3, plain=True), f"any4 {n}")
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _warp_run(probe_lib, p, probes.pattern_inputs(p, 130, "cpu", seed=1), 3)
+    plane = inputs["plane"]
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        probes._probe_reduce_launch(probe_lib, None, plane, inputs["agents"],
+                                    "any_plane", 3, "warp", 128, 128)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_probe_warp_dotred_reads_its_column_of_w(probe_lib, seed):
+    """dotred with a random 0/1 W (only W[:, 0] counts), random x and a
+    ragged row count, bit for bit: the kernel reads the column it is given
+    and does not assume ones (every partial sum stays an integer below
+    2^24)."""
+    p = next(q for q in probes.PATTERNS if q.op == "dotred")
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randint(-2 ** 31, 2 ** 31, (128, 128), generator=gen,
+                      dtype=torch.int64).to(torch.int32)
+    w = torch.randint(0, 2, (128, 128), generator=gen).to(torch.float32)
+    assert 0 < int(w[:, 0].sum()) < 128
+    got = _warp_run(probe_lib, p, {"x": x, "w": w}, 3, rows=40, tile=64)
+    assert torch.equal(got, probes.probe_dot_plain(x, w, "dotred", 3, 40, 64))
+    got = _warp_run(probe_lib, p, {"x": x[:70], "w": w}, 3)
+    assert torch.equal(got, probes.probe_dot_plain(x[:70], w, "dotred", 3))
+    ones = _warp_run(probe_lib, p, {"x": x[:70], "w": torch.ones_like(w)}, 3)
+    assert not torch.equal(got, ones)
+
+
+def test_probe_warp_onehot_reads_off_the_row_as_zero(probe_lib):
+    """onehot_rd's lookups at agents -3..-1 and 128..130 (off the row: the
+    one-hot max is 0) and on cells of negative value (the max with the
+    row's zeros), bit for bit, K = 1 and 3."""
+    p = next(q for q in probes.PATTERNS if q.op == "onehot_rd")
+    gen = torch.Generator().manual_seed(5)
+    plane = torch.randint(-300, 300, (64, 128), generator=gen,
+                          dtype=torch.int64).to(torch.int32)
+    edges = torch.tensor([-3, -2, -1, 128, 129, 130, 0, 127], dtype=torch.int32)
+    agents = edges[torch.randint(0, 8, (64, 4), generator=gen)]
+    assert (plane < 0).any() and (agents < 0).any() and (agents >= 128).any()
+    for k in (1, 3):
+        got = _warp_run(probe_lib, p, {"plane": plane, "agents": agents}, k)
+        want = probes.probe_reduce_plain(plane, agents, "onehot_rd", k)
+        _same_probe(got, want, f"onehot_rd edges k={k}")
+    first = probes.probe_reduce_plain(plane, agents, "onehot_rd", 1)[1]
+    assert ((first == 0) | (agents >= 0)).all() and (first[agents >= 128] == 0).all()
 
 
 def test_probe_warp_header_has_no_asm_and_maps_elements_densely():
     code = _strip_comments((CSRC / "probe_warp.cuh").read_text())
     assert "asm" not in code
+    # dotred makes floats of its 16-bit halves with a permute or a
+    # shift-and-add and an FADD, never an int -> float conversion.
+    dotred = code[code.index("probe_dotred_warp_kernel("):]
+    dotred = dotred[:dotred.index("\n}\n")]
+    assert "(float)" not in dotred and "__int2float" not in dotred
+    assert "__int_as_float(__byte_perm(v[c], 0x4B00, 0x5410))" in dotred
+    assert "__int_as_float((v[c] >> 16) + 0x4B400000)" in dotred
     # The elem grid follows the rows x width elements, not rows x 128 lanes.
     assert "const long long n = (long long)n_rows * width;" in code
     assert "(n + (long long)NT * EPT - 1) / ((long long)NT * EPT)" in code
