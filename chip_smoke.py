@@ -152,6 +152,29 @@ Phases (any failure exits non-zero before the result line):
               a larger share of finished games with the checkpoint), and
               ``azmcts,simple,simple,simple`` (24 sims) at 64 games for 2
               steps.
+11. dist   -- data parallel, resume and replays.  Two gloo ranks sharing
+              the card, as two child processes (``--dist-child``): the
+              sharded random and simple chunks (16384 boards x 256 steps,
+              moves, rands and reset terrain injected, auto-reset) against
+              the unsharded chunk on each rank's rows, bit for bit; one
+              flagship PPO iteration (2048 boards x 64 steps, learner slot 0
+              against three SimpleAgents, ``fused_env=True``, the shipped
+              width) leaving both ranks' parameters and metrics
+              bit-identical, then a timed iteration (each rank's
+              env-steps/s) and one whose all-reduces are timed between
+              syncs.  One NCCL rank (``--nccl-child``, deterministic
+              algorithms): a flagship iteration through the data-parallel
+              path against the plain path, bit for bit, and a sum over one
+              rank against its input.  ``train_ppo`` at the flagship recipe
+              (``--resume-child``): 2 iterations and a ``--resume`` to 4
+              against 4 straight, with ``torch.use_deterministic_algorithms``
+              and ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (must match), then
+              with the defaults (reported).  A 64-step game recorded on the
+              card (``fused_step_kernel``, 1024 boards, board 0), saved and
+              loaded: each frame's ``render_state`` against the same game
+              stepped by the plain version on the CPU.  The launches of the
+              sharded runs, the NCCL rank's data-parallel iteration and the
+              recording count as the ``dist`` path's.
 
 ``--profile`` builds, runs the env path at full width and then a
 ``torch.profiler`` pass over 32 fused and 32 mixed-control env steps, prints
@@ -161,9 +184,9 @@ by kernel; then it builds the chunk kernel with its phase clocks
 path's size, holds their result to the plain build's and prints the share of
 each phase of a step in the summed warp cycles.  It exits with code 4 and
 no result line.
-``--only=probes,env`` (any of step, fsm, chunk, env, probes, learn, search)
-builds, runs just those held comparisons (for ``learn`` and ``search``, the
-whole phase) and exits with code 4 and no result line.
+``--only=probes,env`` (any of step, fsm, chunk, env, probes, learn, search,
+dist) builds, runs just those held comparisons (for ``learn``, ``search`` and
+``dist``, the whole phase) and exits with code 4 and no result line.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -2595,6 +2618,451 @@ def phase_search(dev):
     return res
 
 
+# --- Phase 11: data parallel, resume and replays --------------------------------
+
+DIST_WORLD = 2                       # gloo ranks sharing the one card
+DIST_CHUNK_STEPS = CHUNK             # 16384 boards x 256 steps, as the main path
+DIST_SEED = 41
+DIST_REPS = 9                        # all-reduce timings alone (median)
+DIST_OUT = "build/chip_smoke_dist"   # checkpoints of the resume runs
+RESUME_ARGS = ["--batch", str(2048), "--rollout", "64", "--epochs", "1",
+               "--opponent", "simple", "--learner-slots", "0", "--fused",
+               "--ckpt-every", "2"]
+REPLAY_BOARDS, REPLAY_STEPS = 1024, 64
+DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_chunk_inputs(dev):
+    """The global chunk inputs on the card: boards from ``random_cell_state``
+    with every 97th board finished (the first merge resets them), injected
+    moves (the simple chunk's rands) and injected fresh terrain."""
+    import torch
+
+    from pomcpp_tpu_torch.core.board_gen import (
+        random_board_fast,
+        random_cell_state,
+    )
+
+    cs = random_cell_state(BOARDS, seed=DIST_SEED, device=dev)
+    dead = cs.agent_dead.clone()
+    dead[::97, 1:] = True
+    cs = cs._replace(agent_dead=dead, alive_count=(4 - dead.sum(1)).int())
+    gen = torch.Generator().manual_seed(DIST_SEED)
+    moves = torch.randint(0, 6, (DIST_CHUNK_STEPS, BOARDS, 4), generator=gen,
+                          dtype=torch.int32).to(dev)
+    reset = random_board_fast(BOARDS, torch.Generator().manual_seed(7))
+    return cs, moves, tuple(t.to(dev) for t in reset)
+
+
+def flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def dist_child(rank: int, world: int, port: int) -> dict:
+    """One gloo rank of ``DIST_WORLD`` on the card: the sharded chunks
+    against the unsharded ones on its rows, and the flagship PPO iteration
+    across the ranks.  Returns this rank's report (launches of the sharded
+    runs, held results, times)."""
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
+    from pomcpp_tpu_torch.engine.fused_step import rollout_chunk
+    from pomcpp_tpu_torch.env.environment import env_reset
+    from pomcpp_tpu_torch.learner import ppo as tppo
+    from pomcpp_tpu_torch.parallel import (
+        boards_mesh,
+        gather_batch,
+        local_rows,
+        shard_batch,
+        shard_env_batch,
+        sharded_chunk_rollout,
+    )
+
+    dev = torch.device("cuda", 0)
+    mesh = boards_mesh("gloo", dev, f"tcp://localhost:{port}", rank, world)
+    cs, moves, reset = dist_chunk_inputs(dev)
+    rows = local_rows(BOARDS, mesh)
+    launches = dict.fromkeys(_ext.LAUNCHES, 0)
+    held = {}
+    for policy in ("random", "simple"):
+        fsm = simple_fsm_state_init(BOARDS, dev) if policy == "simple" \
+            else None
+        want = rollout_chunk(cs, DIST_SEED, DIST_CHUNK_STEPS, policy,
+                             moves=moves, reset_boards=reset, fsm_state=fsm)
+        run = sharded_chunk_rollout(mesh, DIST_CHUNK_STEPS, policy)
+        _ext.reset_launches()
+        got = run(shard_batch(cs, mesh), DIST_SEED,
+                  fsm_state=None if fsm is None else shard_batch(fsm, mesh),
+                  moves=shard_batch(moves, mesh, axis=1),
+                  reset_boards=shard_batch(reset, mesh))
+        torch.cuda.synchronize()
+        for k, v in _ext.LAUNCHES.items():
+            launches[k] += v
+        if fsm is None:                  # a CellState alone
+            want, got = (want,), (got,)
+        bad = [f"{i}.{j}" for i, (w, g) in enumerate(zip(want, got))
+               for j, (a, b) in enumerate(zip(w, g))
+               if not torch.equal(a[rows], b)]
+        if bad:
+            raise AssertionError(f"[dist] rank {rank}: sharded {policy} "
+                                 f"chunk differs from the unsharded one in "
+                                 f"{bad}")
+        held[f"{policy}_boards_finished_at_start"] = int(
+            (cs.agent_dead[rows].sum(1) >= 3).sum())
+
+    cfg = flagship_cfg()
+    ts = tppo.ppo_init(DIST_SEED, cfg, dev, rank=rank)
+    start = gather_batch(flat_params(ts.model)[None], mesh)
+    es = shard_env_batch(env_reset(DIST_SEED + 1, LEARN_BATCH, device=dev),
+                         mesh)
+    opp = shard_batch(tppo.opponent_state_init(LEARN_BATCH, cfg, dev), mesh)
+    rows_out = []
+
+    def iteration():
+        nonlocal ts, es, opp
+        _ext.reset_launches()
+        t0 = time.perf_counter()
+        ts, es, m, opp = tppo.ppo_train_step(ts, es, cfg, opp, mesh=mesh)
+        m = {k: float(v) for k, v in m.items()}
+        sec = time.perf_counter() - t0
+        for k, v in _ext.LAUNCHES.items():
+            launches[k] += v
+        rows_out.append({"sec": sec, "metrics": m})
+
+    iteration()                      # the held iteration (and warm-up)
+    after = gather_batch(flat_params(ts.model)[None], mesh)
+    metrics = gather_batch(torch.tensor(
+        [list(rows_out[0]["metrics"].values())], dtype=torch.float64,
+        device=dev), mesh)
+    iteration()                      # timed: env-steps/s of this rank
+    # All-reduce time of one more update, each call between two syncs.
+    spent = []
+    plain = tppo.all_reduce_sum
+
+    def timed(t, m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(t, m)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    tppo.all_reduce_sum = timed
+    try:
+        iteration()
+    finally:
+        tppo.all_reduce_sum = plain
+    # The same all-reduces alone, the ranks lined up by a barrier first:
+    # what the update's calls cost without waiting for the other rank.
+    grad = flat_params(ts.model).clone()
+    scalars = torch.zeros(4, device=dev)
+    alone = []
+    for _ in range(DIST_REPS):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cfg.minibatches):
+            for t in (scalars[:2], scalars[:1], grad):
+                plain(t, mesh)
+        plain(scalars, mesh)
+        plain(scalars[:3], mesh)
+        torch.cuda.synchronize()
+        alone.append(time.perf_counter() - t0)
+    torch.distributed.destroy_process_group()
+    local = LEARN_BATCH // world
+    return {
+        "rank": rank,
+        "held": held,
+        "start_equal": bool(torch.equal(start[0], start[1])),
+        "params_equal": bool(torch.equal(after[0], after[1])),
+        "params_moved": bool(not torch.equal(start[0], after[0])),
+        "metrics_equal": bool(torch.equal(metrics[0], metrics[1])),
+        "metrics": rows_out[0]["metrics"],
+        "env_steps_per_s": local * cfg.rollout_len / rows_out[1]["sec"],
+        "iter_s": rows_out[1]["sec"],
+        "all_reduce_ms_per_update": sum(spent) * 1e3,
+        "all_reduce_alone_ms_per_update": sorted(alone)[DIST_REPS // 2] * 1e3,
+        "all_reduces_per_update": len(spent),
+        "gradient_floats": grad.numel(),
+        "launches": launches,
+    }
+
+
+def nccl_child(port: int) -> dict:
+    """One rank over NCCL: a flagship iteration through the data-parallel
+    path against the plain path from the same start, bit for bit (the
+    card's deterministic algorithms, set before CUDA starts), and a sum
+    over one rank against its input."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.env.environment import env_reset
+    from pomcpp_tpu_torch.learner import ppo as tppo
+    from pomcpp_tpu_torch.parallel import all_reduce_sum, boards_mesh
+
+    dev = torch.device("cuda", 0)
+    mesh = boards_mesh("nccl", dev, f"tcp://localhost:{port}", 0, 1)
+    x = torch.randn(1 << 20, device=dev)
+    identity = bool(torch.equal(all_reduce_sum(x.clone(), mesh), x))
+    cfg = flagship_cfg()
+    runs, launches = [], dict.fromkeys(_ext.LAUNCHES, 0)
+    for m in (None, mesh):
+        ts = tppo.ppo_init(DIST_SEED, cfg, dev)
+        es = env_reset(DIST_SEED + 1, LEARN_BATCH, device=dev)
+        opp = tppo.opponent_state_init(LEARN_BATCH, cfg, dev)
+        _ext.reset_launches()
+        ts, es, metrics, opp = tppo.ppo_train_step(ts, es, cfg, opp, mesh=m)
+        torch.cuda.synchronize()
+        if m is not None:
+            launches = dict(_ext.LAUNCHES)
+        runs.append((flat_params(ts.model), {k: float(v) for k, v in
+                                              metrics.items()},
+                     [t for t in es.game] + list(es[1:]) + list(opp)))
+    (p0, m0, s0), (p1, m1, s1) = runs
+    torch.distributed.destroy_process_group()
+    return {"identity": identity, "params_equal": bool(torch.equal(p0, p1)),
+            "metrics_equal": m0 == m1, "metrics": m1,
+            "state_equal": all(torch.equal(a, b) for a, b in zip(s0, s1)),
+            "launches": launches}
+
+
+def resume_child(deterministic: bool) -> dict:
+    """``train_ppo`` at the flagship recipe on the card: 4 straight
+    iterations, then 2 and a ``--resume`` to 4, in this process; the
+    metrics lines of each."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    if deterministic:
+        torch.use_deterministic_algorithms(True)
+    from pomcpp_tpu_torch.train_ppo import main as train
+
+    tag = "det" if deterministic else "default"
+    out = {}
+    for name, iters, resume in (("straight", 4, False), ("part", 2, False),
+                                ("resumed", 4, True)):
+        ck = f"{DIST_OUT}/{tag}_{'straight' if name == 'straight' else 'cut'}"
+        if not resume:
+            shutil.rmtree(ck, ignore_errors=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train(RESUME_ARGS + ["--iters", str(iters), "--ckpt-dir", ck]
+                  + (["--resume"] if resume else []))
+        out[name] = buf.getvalue().splitlines()
+    return out
+
+
+def run_children(args_list, env_extra=None, timeout=600) -> list:
+    """Run ``chip_smoke.py`` children at once, their output in files under
+    ``DIST_OUT``; each one's ``CHILD`` JSON line.  A child that exits
+    non-zero fails the phase at once (the others, which may be waiting for
+    it in a collective, are killed), and so does the time limit."""
+    import os
+
+    env = dict(os.environ, **(env_extra or {}))
+    os.makedirs(DIST_OUT, exist_ok=True)
+    logs = [f"{DIST_OUT}/child_{'_'.join(args)}.log" for args in args_list]
+    procs = []
+    try:
+        for args, path in zip(args_list, logs):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, __file__, *args], stdout=out,
+                    stderr=subprocess.STDOUT, text=True, env=env))
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(c for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for path in logs:
+        with open(path) as f:
+            outs.append(f.read())
+    # A child that failed on its own first, then those killed here.
+    for p, out, args in sorted(zip(procs, outs, args_list),
+                               key=lambda x: x[0].returncode < 0):
+        if p.returncode != 0:
+            raise RuntimeError(f"[dist] child {args} exited {p.returncode}: "
+                               f"{out[-3000:]}")
+    return [json.loads([s for s in out.splitlines()
+                        if s.startswith("CHILD ")][-1].split(" ", 1)[1])
+            for out in outs]
+
+
+def metric_rows(lines) -> list:
+    skip = {"env_steps_per_s", "sec"}
+    return [{k: v for k, v in json.loads(s).items() if k not in skip}
+            for s in lines if s.startswith("{")]
+
+
+def phase_dist_replay(dev) -> dict:
+    """A 64-step game recorded on the card (``fused_step_kernel``, 1024
+    boards, board 0 recorded), saved and loaded; each frame's rendering
+    against the rendering of the same game stepped by the plain version on
+    the CPU, and of the card's own state (``to_state`` on card tensors)."""
+    import os
+
+    import torch
+
+    from pomcpp_tpu_torch import _ext
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.cellular import board_of, to_state
+    from pomcpp_tpu_torch.engine.fused_step import fused_step
+    from pomcpp_tpu_torch.render import render_state
+    from pomcpp_tpu_torch.utils.replay import (
+        load_replay,
+        record_game,
+        replay_frame,
+        save_replay,
+    )
+
+    gen = torch.Generator().manual_seed(DIST_SEED)
+    moves = torch.randint(0, 6, (REPLAY_STEPS, REPLAY_BOARDS, 4),
+                          generator=gen, dtype=torch.int32)
+    cs = random_cell_state(REPLAY_BOARDS, seed=DIST_SEED, device=dev)
+    def step(device):
+        def run(game, mv):
+            out = fused_step(game, mv, device=device)
+            return out._replace(timestep=out.timestep + 1)
+        return run
+
+    _ext.reset_launches()
+    states, mv = record_game(cs, step(None), lambda t, g: moves[t].to(dev),
+                             REPLAY_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    os.makedirs(DIST_OUT, exist_ok=True)
+    path = f"{DIST_OUT}/replay.npz"
+    save_replay(path, states, mv)
+    loaded, mv2 = load_replay(path, board_of(random_cell_state(1, device="cpu")))
+    cpu_states, _ = record_game(
+        type(cs)(*(t[:1].cpu() for t in cs)), step("cpu"),
+        lambda t, g: moves[t, :1], REPLAY_STEPS)
+    drawn = set()
+    for t in range(REPLAY_STEPS + 1):
+        a = render_state(to_state(replay_frame(loaded, t)))
+        b = render_state(to_state(replay_frame(cpu_states, t)))
+        if a != b:
+            raise AssertionError(f"[dist] replay frame {t}: the card's game "
+                                 f"renders differently from the CPU's")
+        drawn |= {g for g in ("●", "♨", "DEAD") if g in a}
+    if render_state(to_state(board_of(cs))) != \
+            render_state(to_state(replay_frame(loaded, 0))):
+        raise AssertionError("[dist] to_state on card tensors renders "
+                             "differently")
+    if not torch.equal(mv2, moves[:, 0]):
+        raise AssertionError("[dist] the replay's moves changed")
+    return {"frames": REPLAY_STEPS + 1, "glyphs_seen": sorted(drawn),
+            "bytes": os.path.getsize(path), "launches": launches}
+
+
+def phase_dist(dev) -> dict:
+    """Data parallel on the card: two gloo ranks sharing it (the sharded
+    chunks at 16384 boards x 256 steps, a flagship PPO iteration), one
+    NCCL rank against the plain path, resume through ``train_ppo`` with and
+    without deterministic algorithms, and a replay recorded on the card."""
+    import os
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    port = free_port()
+    ranks = run_children([["--dist-child", str(r), str(DIST_WORLD), str(port)]
+                          for r in range(DIST_WORLD)])
+    for r in ranks:
+        for key in ("start_equal", "params_equal", "params_moved",
+                    "metrics_equal"):
+            if not r[key]:
+                raise AssertionError(f"[dist] rank {r['rank']}: {key} "
+                                     f"failed: {r}")
+    log(f"[dist] {DIST_WORLD} gloo ranks on one card: the sharded random and "
+        f"simple chunks ({BOARDS} boards x {DIST_CHUNK_STEPS} steps, moves, "
+        f"rands and reset terrain injected, auto-reset) equal the unsharded "
+        f"ones on every rank's rows; one flagship iteration ({LEARN_BATCH} "
+        f"boards x {LEARN_ROLLOUT} steps) leaves both ranks' parameters and "
+        f"metrics bit-identical")
+    nccl = run_children([["--nccl-child", str(free_port())]],
+                        DETERMINISTIC_ENV)[0]
+    if not (nccl["identity"] and nccl["params_equal"]
+            and nccl["metrics_equal"] and nccl["state_equal"]):
+        raise AssertionError(f"[dist] one NCCL rank: the data-parallel "
+                             f"iteration differs from the plain one: {nccl}")
+    log("[dist] one NCCL rank: a flagship iteration through the "
+        "data-parallel path equals the plain path's bit for bit (parameters, "
+        "metrics, env and opponent state); a sum over one rank is the "
+        "identity")
+    det = run_children([["--resume-child", "1"]], DETERMINISTIC_ENV,
+                       timeout=900)[0]
+    straight = metric_rows(det["straight"])
+    resumed = metric_rows(det["part"]) + metric_rows(det["resumed"])
+    if not any(s.startswith("resumed full bundle") for s in det["resumed"]):
+        raise AssertionError(f"[dist] no bundle was resumed: {det}")
+    if len(straight) != 4 or straight != resumed:
+        raise AssertionError(f"[dist] resumed metrics differ from the "
+                             f"straight run's: {straight} vs {resumed}")
+    default = run_children([["--resume-child", "0"]], timeout=900)[0]
+    default_match = metric_rows(default["straight"]) == (
+        metric_rows(default["part"]) + metric_rows(default["resumed"]))
+    log(f"[dist] resume at the flagship recipe: 2 + 2 iterations equal 4 "
+        f"straight, bit for bit, with deterministic algorithms; with the "
+        f"default algorithms they "
+        f"{'also match' if default_match else 'do NOT match'}")
+    replay = phase_dist_replay(dev)
+    log(f"[dist] replay: {json.dumps(replay)}")
+    launches = dict.fromkeys(ranks[0]["launches"], 0)
+    for part in [r["launches"] for r in ranks] + [nccl["launches"],
+                                                  replay["launches"]]:
+        for k, v in part.items():
+            launches[k] += v
+    res = {
+        "ranks": [{k: r[k] for k in ("rank", "env_steps_per_s", "iter_s",
+                                     "all_reduce_ms_per_update",
+                                     "all_reduce_alone_ms_per_update",
+                                     "all_reduces_per_update",
+                                     "gradient_floats", "held")}
+                  for r in ranks],
+        "nccl_one_rank": {k: nccl[k] for k in ("identity", "params_equal",
+                                               "metrics_equal",
+                                               "state_equal")},
+        "resume_deterministic_match": True,
+        "resume_default_match": default_match,
+        "replay": {k: v for k, v in replay.items() if k != "launches"},
+        "launches": launches,
+        "phase_s": time.perf_counter() - t0,
+    }
+    log(f"[dist] per-rank env-steps/s "
+        f"{[round(r['env_steps_per_s'], 1) for r in ranks]}, all-reduce ms "
+        f"per update {[round(r['all_reduce_ms_per_update'], 3) for r in ranks]}"
+        f" in the update (waits for the other rank included), "
+        f"{[round(r['all_reduce_alone_ms_per_update'], 3) for r in ranks]} "
+        f"alone after a barrier ({ranks[0]['all_reduces_per_update']} calls, "
+        f"{ranks[0]['gradient_floats']} gradient floats), {DIST_WORLD} gloo "
+        f"ranks sharing one card, flagship recipe, on {smi}")
+    log(f"[dist] {json.dumps(res)}")
+    log(f"[dist] phase took {res['phase_s']:.1f} s")
+    return res
+
+
 def bound_ms(board_steps: int, bytes_moved: int, rates) -> tuple[float, str]:
     """Least time: bytes over the memory rate vs one 32-bit instruction per
     state value per board-step (7 planes x 121 cells) over the issue rate
@@ -2606,7 +3074,8 @@ def bound_ms(board_steps: int, bytes_moved: int, rates) -> tuple[float, str]:
 
 HELD_PHASES = {"step": phase_step, "fsm": phase_fsm, "chunk": phase_chunk,
                "env": phase_env_held, "probes": phase_probes_held,
-               "learn": phase_learn, "search": phase_search}
+               "learn": phase_learn, "search": phase_search,
+               "dist": phase_dist}
 
 
 def main() -> int:
@@ -2624,6 +3093,12 @@ def main() -> int:
     dev = torch.device("cuda")
     if "--search-profile-child" in sys.argv[1:]:
         print("SEARCH_PROFILE " + json.dumps(search_profile_child()))
+        return 0
+    child = {"--dist-child": lambda a: dist_child(*map(int, a)),
+             "--nccl-child": lambda a: nccl_child(int(a[0])),
+             "--resume-child": lambda a: resume_child(a[0] == "1")}
+    if len(sys.argv) > 1 and sys.argv[1] in child:
+        print("CHILD " + json.dumps(child[sys.argv[1]](sys.argv[2:])))
         return 0
     smi = nvidia_smi_line()
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2662,11 +3137,12 @@ def main() -> int:
     log(f"[probes] phase took {time.perf_counter() - t0:.1f} s")
     learn = phase_learn(dev)
     search = phase_search(dev)
+    dist = phase_dist(dev)
     torch.cuda.synchronize()
 
     paths = {"main": main_res["launches"], "env": env_res["launches"],
              "probes": probe_launches, "learn": learn["launches"],
-             "search": search["launches"]}
+             "search": search["launches"], "dist": dist["launches"]}
 
     def launches(name):
         by_path = {path: counts[name] for path, counts in paths.items()

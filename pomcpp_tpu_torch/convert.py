@@ -5,6 +5,8 @@ field names (a ``CellState`` of numpy arrays, or the JAX package's
 ``CellState`` -- anything ``numpy.asarray`` reads) and builds the port's
 ``CellState`` on a device; ``to_numpy`` goes back.  Integer fields are int32,
 ``agent_can_kick`` / ``agent_dead`` are bool, as in the JAX package.
+``state_to_torch`` does the same for the queue-encoded ``State`` of one
+board.
 
 The SimpleAgent's FSM state is carried across too.  ``fsm_to_torch`` reads
 the JAX package's ten-array kernel state (``simple_fsm_state_init``'s
@@ -49,6 +51,25 @@ def to_torch(state, device=None) -> CellState:
         a = a.astype(np.bool_ if name in BOOL_FIELDS else np.int32)
         out[name] = torch.from_numpy(a).to(device)
     return CellState(**out)
+
+
+def state_to_torch(state, device=None):
+    """Port queue-encoded ``State`` (one board) on ``device`` (None: CUDA)
+    from array-likes with its field names, e.g. the JAX package's.  Bool
+    fields stay bool; every other field becomes int32."""
+    from .core.state import Bombs, Flames, State
+
+    device = resolve_device(device)
+
+    def tensor(a):
+        a = np.asarray(a)
+        a = a if a.dtype == np.bool_ else a.astype(np.int32)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    out = {f: tensor(getattr(state, f)) for f in State._fields
+           if f not in ("bombs", "flames")}
+    return State(bombs=Bombs(*map(tensor, state.bombs)),
+                 flames=Flames(*map(tensor, state.flames)), **out)
 
 
 def to_numpy(cs: CellState) -> CellState:

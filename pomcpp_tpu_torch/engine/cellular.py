@@ -579,3 +579,112 @@ def cellular_step(cs: CellState, moves, max_chain_rounds=None) -> CellState:
     cs = _move_agents(cs, moves)
     cs, slide = _bomb_phase(cs, moves, old_x, old_y)
     return _explode(cs, slide, max_chain_rounds)
+
+
+# --- Conversion from and to the queue-encoded State (host and test path) -------
+
+
+def board_of(cs: CellState, i: int = 0) -> CellState:
+    """Board ``i`` of a batch, without its batch axis (what ``to_state`` and
+    the renderer take)."""
+    return CellState(*(t[i] for t in cs))
+
+
+def from_state(s) -> CellState:
+    """Scatter a queue-encoded ``State`` (one board) into planes -> a
+    ``CellState`` of one board, without a batch axis, on ``s``'s device.
+
+    ``bomb_*`` planes take the maximum over the live records on each cell
+    (with 0); a FLAME cell's timer is the most over the live flame records
+    whose origin matches its ``flame_sig``."""
+    from ..core.queue import logical_view
+
+    dev = s.board.device
+    li = torch.arange(s.bombs.x.shape[0], device=dev)
+    bx = logical_view(s.bombs.x, s.bomb_head)
+    by = logical_view(s.bombs.y, s.bomb_head)
+    valid = li < s.bomb_count
+    c = (bx + BOARD_SIZE * by).clamp(0, NUM_CELLS - 1).long()
+    zero = torch.zeros(NUM_CELLS, dtype=I32, device=dev)
+
+    def scat(field):
+        vals = torch.where(valid, logical_view(field, s.bomb_head), 0).to(I32)
+        return zero.scatter_reduce(0, c, vals, "amax")
+
+    fli = torch.arange(s.flames.x.shape[0], device=dev)
+    fx = logical_view(s.flames.x, s.flame_head)
+    fy = logical_view(s.flames.y, s.flame_head)
+    ft = logical_view(s.flames.timer, s.flame_head)
+    fvalid = fli < s.flame_count
+    match = fvalid[None, :] & ((fx + BOARD_SIZE * fy)[None, :]
+                               == s.flame_sig[:, None])
+    flame_timer = torch.where(match, ft[None, :], 0).amax(1) \
+        * (s.board == C_FLAME)
+    return CellState(
+        board=s.board, hidden_pow=s.hidden_pow,
+        flame_timer=flame_timer.to(I32),
+        bomb_timer=scat(s.bombs.timer), bomb_strength=scat(s.bombs.strength),
+        bomb_dir=scat(s.bombs.dir), bomb_owner=scat(s.bombs.id),
+        agent_x=s.agent_x, agent_y=s.agent_y,
+        agent_bomb_count=s.agent_bomb_count,
+        agent_max_bombs=s.agent_max_bombs, agent_strength=s.agent_strength,
+        agent_can_kick=s.agent_can_kick, agent_dead=s.agent_dead,
+        alive_count=s.alive_count, timestep=s.timestep,
+    )
+
+
+def to_state(cs: CellState):
+    """Rebuild a queue-encoded ``State`` from the planes of one board (no
+    batch axis; ``board_of``), on ``cs``'s device.
+
+    Bomb queue order is (timer asc, owner asc, cell asc): timers are
+    monotone along the reference queue and same-step plants append in agent
+    order.  Flame records are one per FLAME cell, its origin the cell
+    itself, in (timer asc, cell asc) order, with ``flame_sig`` of the cell
+    set to its own index.  Both queues start at head 0."""
+    import numpy as np
+
+    from ..core.state import empty_state
+
+    dev = cs.board.device
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    board, bt, owner = host(cs.board), host(cs.bomb_timer), host(cs.bomb_owner)
+    order = sorted(np.nonzero(bt > 0)[0].tolist(),
+                   key=lambda c: (int(bt[c]), int(owner[c])))
+    ft = host(cs.flame_timer)
+    forder = sorted(np.nonzero((ft > 0) & (board == C_FLAME))[0].tolist(),
+                    key=lambda c: int(ft[c]))
+    s = empty_state(dev)
+    bombs = {k: host(v) for k, v in s.bombs._asdict().items()}
+    for i, c in enumerate(order):
+        bombs["x"][i], bombs["y"][i] = c % BOARD_SIZE, c // BOARD_SIZE
+        bombs["id"][i] = owner[c]
+        bombs["strength"][i] = host(cs.bomb_strength)[c]
+        bombs["timer"][i] = bt[c]
+        bombs["dir"][i] = host(cs.bomb_dir)[c]
+    flames = {k: host(v) for k, v in s.flames._asdict().items()}
+    sig = host(s.flame_sig)
+    for i, c in enumerate(forder):
+        flames["x"][i], flames["y"][i] = c % BOARD_SIZE, c // BOARD_SIZE
+        flames["timer"][i] = ft[c]
+        sig[c] = c
+
+    def dev_of(a):
+        return torch.from_numpy(a).to(dev)
+
+    return s._replace(
+        board=cs.board.to(I32), hidden_pow=cs.hidden_pow.to(I32),
+        flame_sig=dev_of(sig),
+        agent_x=cs.agent_x, agent_y=cs.agent_y,
+        agent_bomb_count=cs.agent_bomb_count,
+        agent_max_bombs=cs.agent_max_bombs, agent_strength=cs.agent_strength,
+        agent_can_kick=cs.agent_can_kick, agent_dead=cs.agent_dead,
+        alive_count=cs.alive_count, timestep=cs.timestep,
+        bombs=type(s.bombs)(**{k: dev_of(v) for k, v in bombs.items()}),
+        bomb_count=torch.tensor(len(order), dtype=I32, device=dev),
+        flames=type(s.flames)(**{k: dev_of(v) for k, v in flames.items()}),
+        flame_count=torch.tensor(len(forder), dtype=I32, device=dev),
+    )

@@ -247,11 +247,14 @@ class PommermanEnv:
         )
 
     def render(self) -> str:
-        raise NotImplementedError(
-            "render() needs the ASCII renderer and the queue-encoded State "
-            "it draws (render/ascii.py, engine/cellular.to_state), which "
-            "are not part of the port yet"
-        )
+        """Board 0 as the JAX front end draws it: ``render_state`` of its
+        queue-encoded ``State``, without colour."""
+        from ..engine.cellular import board_of, to_state
+        from ..render.ascii import render_state
+
+        if self._es is None:
+            raise RuntimeError("call reset() first")
+        return render_state(to_state(board_of(self._es.game)), color=False)
 
     def close(self) -> None:
         self._es = None

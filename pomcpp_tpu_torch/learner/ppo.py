@@ -28,7 +28,23 @@ Test hooks of ``collect_rollout_batch``, in the style of the env's: ``moves``
 (i32[T, B, L]) replaces the sampled learner moves (``logp`` is then of the
 injected move), ``fresh`` (a list of T ``CellState`` batches) is handed to
 the env's ``fresh=`` at each step, ``rand_moves`` (i32[T, B, 4]) to the
-mixed-control step's ``rand_moves=``.
+mixed-control step's ``rand_moves=``; ``opp_moves`` (i32[T, B, 4]) replaces
+the draws of the random, harmless and lazy opponents, ``opp_rands``
+(i32[T, B, 4]) the rands of the unfused SimpleAgent opponents, and
+``frozen_moves`` (i32[T, B, F]) the frozen net's sampled moves.
+
+Data parallelism.  Given a ``parallel.BoardsMesh``, ``ppo_update`` and
+``ppo_train_step`` compute what the JAX package's global-batch ``jit``
+computes, each rank holding its boards: the loss all-reduces the masked
+weight sum and the advantage's masked sums before it normalises (data, not
+functions of the weights), so each rank's loss is its rows' weighted sum
+over the global weight sum; the gradients are summed over the ranks before
+the global-norm clip; the metrics are summed too.  With
+``shuffle_minibatches=False`` and ``minibatches`` dividing
+``rollout_len``, a rank's slab ``i`` is its rows of the global slab ``i``
+(the flat batch is time-major), so a W-rank update equals the 1-rank
+update of the same global batch up to summation order.  ``ppo_init``'s
+``rank`` folds the rank into the generators' seeds, not the weights'.
 """
 
 from __future__ import annotations
@@ -55,6 +71,7 @@ from ..env.environment import (
 )
 from ..env.observation import DEFAULT_VIEW_RANGE, observe_ego
 from ..models.actor_critic import N_FEATURES, ActorCritic, obs_to_features
+from ..parallel.mesh import all_reduce_sum, fold_seed
 
 
 class PPOConfig(NamedTuple):
@@ -116,17 +133,20 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 
 def ppo_init(seed: int, cfg: PPOConfig = PPOConfig(),
-             device=None) -> TrainState:
+             device=None, rank: int = 0) -> TrainState:
     """A fresh learner on ``device`` (None: the card).  The weights are drawn
-    on the CPU from ``seed``, so every device starts from the same net."""
+    on the CPU from ``seed``, so every device and rank starts from the same
+    net; the generators draw from ``seed`` with ``rank`` folded in
+    (``parallel.fold_seed``)."""
     device = resolve_device(device)
     init = torch.Generator().manual_seed(seed)
     model = ActorCritic(view_range=cfg.view_range, generator=init).to(device)
+    draws = fold_seed(seed, rank)
     return TrainState(
         model=model,
         optimizer=_optimizer(model, cfg),
-        gen=torch.Generator(device=device).manual_seed(seed),
-        host_gen=torch.Generator().manual_seed(seed),
+        gen=torch.Generator(device=device).manual_seed(draws),
+        host_gen=torch.Generator().manual_seed(draws),
         key=np.array([seed >> 32 & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32),
         update_count=0,
     )
@@ -194,15 +214,19 @@ _BASIC = {"random": random_agent, "harmless": harmless_agent,
           "lazy": lazy_agent}
 
 
-def _opponent_moves_batch(name, gen, games, opp_state):
+def _opponent_moves_batch(name, gen, games, opp_state, draws=None):
     """Scripted moves for all four slots of every board -> (i32[B, 4],
-    state')."""
+    state').  ``draws`` (i32[B, 4]) replaces what ``gen`` would draw: the
+    SimpleAgent's rands, or the other policies' moves."""
     if name == "simple":
         b = games.board.shape[0]
-        rands = torch.randint(0, 5, (b, AGENT_COUNT), generator=gen,
-                              device=gen.device, dtype=I32)
+        rands = draws if draws is not None else torch.randint(
+            0, 5, (b, AGENT_COUNT), generator=gen, device=gen.device,
+            dtype=I32)
         moves, _, opp2 = simple_agent_cell_joint(games, opp_state, rands)
         return torch.where(games.agent_dead, 0, moves).to(I32), opp2
+    if draws is not None:
+        return torch.where(games.agent_dead, 0, draws).to(I32), opp_state
     return act_all(_BASIC[name], gen, games), opp_state
 
 
@@ -282,6 +306,7 @@ def _reset_rows(done, fresh, state):
 def collect_rollout_batch(model, es: EnvState, cfg: PPOConfig, gen,
                           opp_state=None, frozen_model=None, host_gen=None,
                           moves=None, fresh=None, rand_moves=None,
+                          opp_moves=None, opp_rands=None, frozen_moves=None,
                           device=None):
     """Roll ``cfg.rollout_len`` steps of the whole batch.
 
@@ -328,13 +353,18 @@ def collect_rollout_batch(model, es: EnvState, cfg: PPOConfig, gen,
         alive_before = ~game.agent_dead
         if cfg.opponent:
             if scripted and not in_kernel:
-                mv, opp = _opponent_moves_batch(scripted_name, gen, game, opp)
+                draws = opp_rands if scripted_name == "simple" else opp_moves
+                mv, opp = _opponent_moves_batch(
+                    scripted_name, gen, game, opp,
+                    None if draws is None else
+                    torch.as_tensor(draws[t]).to(device=dev, dtype=I32))
             else:
                 mv = torch.zeros_like(game.agent_x)
             mv = mv.index_copy(1, sl, moves_l)
             if frozen:
-                moves_f = _policy_slots(frozen_model, game, gen, frozen,
-                                        cfg.view_range)[0]
+                moves_f = _policy_slots(
+                    frozen_model, game, gen, frozen, cfg.view_range,
+                    None if frozen_moves is None else frozen_moves[t])[0]
                 mv = mv.index_copy(1, fz, moves_f)
         else:
             mv = moves_l
@@ -396,20 +426,25 @@ def compute_gae(traj: Transition, boot_value, cfg: PPOConfig):
     return adv, adv + traj.value
 
 
-def _ppo_loss(model, batch, cfg: PPOConfig):
+def _ppo_loss(model, batch, cfg: PPOConfig, mesh=None):
     """Clipped PPO loss of a flat minibatch ``(feats, move, old_logp, adv,
-    ret, mask)`` -> (loss, metrics)."""
+    ret, mask)`` -> (loss, metrics).  With ``mesh``, the rows are this
+    rank's part of the global minibatch: the weight and advantage sums are
+    summed over the ranks, and the loss is this rank's share of the global
+    one (see the module docstring)."""
     feats, move, old_logp, adv, ret, alive = batch
     logits, value = model(feats)
     logp_all = F.log_softmax(logits, -1)
     logp = logp_all.gather(1, move.long()[:, None])[:, 0]
     ratio = torch.exp(logp - old_logp)
     w = alive.float()
-    wsum = w.sum() + 1e-8
     # Masked advantage normalization: junk (invalid/dead) entries must not
     # shift the statistics of the real ones.
-    adv_mean = (adv * w).sum() / wsum
-    adv_std = torch.sqrt((torch.square(adv - adv_mean) * w).sum() / wsum)
+    sums = all_reduce_sum(torch.stack([w.sum(), (adv * w).sum()]), mesh)
+    wsum = sums[0] + 1e-8
+    adv_mean = sums[1] / wsum
+    adv_std = torch.sqrt(all_reduce_sum(
+        (torch.square(adv - adv_mean) * w).sum(), mesh) / wsum)
     adv_n = (adv - adv_mean) / (adv_std + 1e-8)
     unclipped = ratio * adv_n
     clipped = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_n
@@ -421,17 +456,40 @@ def _ppo_loss(model, batch, cfg: PPOConfig):
                   "entropy": entropy}
 
 
-def optimizer_step(ts: TrainState, cfg: PPOConfig) -> None:
-    """Clip the model's gradients by their global norm, then one Adam step."""
-    clip_by_global_norm_(list(ts.model.parameters()), cfg.max_grad_norm)
+def sum_gradients(params, mesh) -> None:
+    """Sum the gradients of ``params`` over the ranks of ``mesh``, in one
+    all-reduce of one flat buffer (no-op without a mesh)."""
+    if mesh is None:
+        return
+    grads = [p.grad for p in params]
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def optimizer_step(ts: TrainState, cfg: PPOConfig, mesh=None) -> None:
+    """Sum the gradients over the ranks (with ``mesh``), clip them by their
+    global norm, then one Adam step."""
+    params = list(ts.model.parameters())
+    sum_gradients(params, mesh)
+    clip_by_global_norm_(params, cfg.max_grad_norm)
     ts.optimizer.step()
 
 
-def ppo_update(ts: TrainState, flat_batch, cfg: PPOConfig):
+def _sum_metrics(metrics: dict, mesh) -> dict:
+    """The metrics summed over the ranks, in one all-reduce."""
+    if mesh is None:
+        return metrics
+    total = all_reduce_sum(torch.stack(list(metrics.values())), mesh)
+    return dict(zip(metrics, total.unbind()))
+
+
+def ppo_update(ts: TrainState, flat_batch, cfg: PPOConfig, mesh=None):
     """Minibatched clipped-PPO epochs over a flat ``[N, ...]`` batch ->
     ``(ts, metrics of the last minibatch)``.  Each minibatch is gathered on
     its own (``torch.randperm`` on ``ts.gen``); ``shuffle_minibatches=False``
-    takes contiguous slabs."""
+    takes contiguous slabs.  With ``mesh``, the batch is this rank's rows
+    and the update is the global one (see the module docstring)."""
     n = flat_batch[0].shape[0]
     mb = n // cfg.minibatches
     dev = flat_batch[0].device
@@ -446,10 +504,10 @@ def ppo_update(ts: TrainState, flat_batch, cfg: PPOConfig):
             else:
                 sl = tuple(x[i * mb:(i + 1) * mb] for x in flat_batch)
             ts.optimizer.zero_grad(set_to_none=True)
-            loss, metrics = _ppo_loss(ts.model, sl, cfg)
+            loss, metrics = _ppo_loss(ts.model, sl, cfg, mesh)
             loss.backward()
-            optimizer_step(ts, cfg)
-    metrics = {k: v.detach() for k, v in metrics.items()}
+            optimizer_step(ts, cfg, mesh)
+    metrics = _sum_metrics({k: v.detach() for k, v in metrics.items()}, mesh)
     return ts._replace(update_count=ts.update_count + 1), metrics
 
 
@@ -466,7 +524,7 @@ def flatten_batch(traj: Transition, adv, ret):
 
 def ppo_train_step(ts: TrainState, es_batch: EnvState,
                    cfg: PPOConfig = PPOConfig(), opp_state=None,
-                   frozen_model=None, device=None):
+                   frozen_model=None, device=None, mesh=None):
     """One PPO iteration over a batched env on ``device`` (None: the card):
     collect, GAE, update.
 
@@ -474,17 +532,22 @@ def ppo_train_step(ts: TrainState, es_batch: EnvState,
     opponents' state as a fourth element (thread it back in, or pass None
     to start fresh).  ``metrics`` are device tensors: the last minibatch's
     losses, ``reward_mean`` (reward per finished episode), ``episodes`` and
-    ``draws``.
+    ``draws``.  With ``mesh`` (a ``parallel.BoardsMesh``), ``es_batch`` and
+    ``opp_state`` are this rank's boards and the update and the metrics
+    are the global batch's, equal on every rank.
     """
     out = collect_rollout_batch(ts.model, es_batch, cfg, ts.gen, opp_state,
                                 frozen_model, ts.host_gen, device=device)
     es_final, traj, boot = out[:3]
     adv, ret = compute_gae(traj, boot, cfg)
-    ts, metrics = ppo_update(ts, flatten_batch(traj, adv, ret), cfg)
-    episodes = traj.done.sum()
-    metrics["reward_mean"] = traj.reward.sum() / episodes.clamp_min(1)
+    ts, metrics = ppo_update(ts, flatten_batch(traj, adv, ret), cfg, mesh)
+    counts = _sum_metrics({"reward": traj.reward.sum(),
+                           "episodes": traj.done.sum().float(),
+                           "draws": traj.draw.sum().float()}, mesh)
+    episodes = counts["episodes"].long()
+    metrics["reward_mean"] = counts["reward"] / episodes.clamp_min(1)
     metrics["episodes"] = episodes
-    metrics["draws"] = traj.draw.sum()
+    metrics["draws"] = counts["draws"].long()
     if cfg.opponent:
         return ts, es_final, metrics, out[3]
     return ts, es_final, metrics

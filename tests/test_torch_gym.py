@@ -3,7 +3,8 @@
 ``_obs_planes`` is held key by key, exactly, against the vmapped JAX
 function for the three fogs with and without the classic encoding; the
 rewards and ``terminated`` / ``truncated`` are checked on scripted games
-(rewards are 0 / +1 / -1 floats, exact).
+(rewards are 0 / +1 / -1 floats, exact); ``render()`` equals the JAX
+renderer's drawing of the same board.
 """
 
 import jax
@@ -147,8 +148,16 @@ def test_draw_by_step_cap_is_truncated_and_single_env_strips_the_axis():
     assert bool(trunc) and not bool(term) and int(info["timestep"]) == 3
     frozen = env.step([1, 2, 3, 4])                 # no auto-reset: frozen
     assert int(frozen[4]["timestep"]) == 3 and bool(frozen[3])
-    with pytest.raises(NotImplementedError, match="render"):
-        env.render()
+    # render() draws board 0 as the JAX front end does.
+    from pomcpp_tpu.engine.cellular import to_state as jax_to_state
+    from pomcpp_tpu.render.ascii import render_state as jax_render
+    from pomcpp_tpu_torch.convert import to_numpy
+    from pomcpp_tpu_torch.engine.cellular import board_of
+
+    drawn = env.render()
+    assert drawn == jax_render(jax_to_state(to_numpy(board_of(env._es.game))),
+                               color=False)
+    assert drawn.splitlines()[-1] == "t=3 alive=4" and " 0 " in drawn
     with pytest.raises(ValueError, match="shape"):
         env.step(np.zeros((2, 4)))
     env.close()

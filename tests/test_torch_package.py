@@ -155,24 +155,34 @@ def test_search_arena_and_distill_entry_points_need_cuda(monkeypatch):
 
 
 def test_chip_smoke_knows_its_phases():
-    """``--only=`` takes every held phase, the search phase included."""
+    """``--only=`` takes every held phase, the search and dist phases
+    included."""
     assert set(chip_smoke.HELD_PHASES) == {"step", "fsm", "chunk", "env",
-                                           "probes", "learn", "search"}
+                                           "probes", "learn", "search",
+                                           "dist"}
 
 
-@pytest.mark.parametrize("make", ["empty_cell_state", "simple_agent_init"])
+@pytest.mark.parametrize("make", ["empty_cell_state", "simple_agent_init",
+                                  "empty_state"])
 def test_state_constructors_default_to_the_card(monkeypatch, make):
-    """Like every entry point, the two state constructors put their state
-    on the card unless the caller names the CPU."""
+    """Like every entry point, the state constructors put their state on
+    the card unless the caller names the CPU."""
     from pomcpp_tpu_torch.agents.simple import simple_agent_init
+    from pomcpp_tpu_torch.core.state import empty_state
     from pomcpp_tpu_torch.engine.cellular import empty_cell_state
 
-    fn, arg = {"empty_cell_state": (empty_cell_state, 2),
-               "simple_agent_init": (simple_agent_init, (2, 4))}[make]
-    assert all(t.device.type == "cpu" for t in fn(arg, "cpu"))
+    fn, args = {"empty_cell_state": (empty_cell_state, (2,)),
+                "simple_agent_init": (simple_agent_init, ((2, 4),)),
+                "empty_state": (empty_state, ())}[make]
+
+    def tensors(x):
+        return [x] if isinstance(x, torch.Tensor) else \
+            [t for y in x for t in tensors(y)]
+
+    assert all(t.device.type == "cpu" for t in tensors(fn(*args, "cpu")))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        fn(arg)
+        fn(*args)
 
 
 def test_simple_policy_runs_on_the_cpu():

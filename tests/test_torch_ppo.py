@@ -5,14 +5,24 @@ boards stepped 12 random steps (bombs in play, some agents dead), with a
 step cap that falls inside the window: resets, deaths, wins and draws all
 occur.  The JAX side runs unchanged but for its env functions, which the
 test wraps (``ppo.py`` imports them at call time) to record each step's
-fresh games -- ``_fresh`` of the key the collector hands the env -- and, for
-the mixed-control step, to run the Pallas chunk in interpret mode on rands
-from a seeded table.  The port gets JAX's moves (``moves=``), those fresh
-games (``fresh=``) and the same rands (``rand_moves=``).  Tolerance: every
-``Transition`` field, the final env state (every ``CellState`` field,
-``done``, ``winner``, ``is_draw``; the keys are each package's own) and the
-FSM state exact; ``value`` and ``boot_value`` within the model's tolerance
-(0.005), ``logp`` within the logits' (0.02) on the rows of live agents --
+fresh games -- ``_fresh`` of the key the collector hands the env -- and
+each step's moves, and, for the mixed-control step, to run the Pallas chunk
+in interpret mode on rands from a seeded table; its scripted opponents
+(``_opponent_moves_batch``) are wrapped too, to record the random,
+harmless and lazy moves and to run the unfused SimpleAgents
+(``simple_agent_cell_act``) on rands from the same table.  The port gets
+JAX's moves (``moves=``), those fresh games (``fresh=``), the same rands
+(``rand_moves=``, ``opp_rands=``), the scripted moves (``opp_moves=``) and
+the frozen slots' moves as the env took them (``frozen_moves=``).  Cases:
+self-play, and every opponent of ``docs/TRAINING.md``'s curriculum --
+random, harmless, lazy, simple fused and unfused, frozen, frozen+simple
+fused and unfused.  Tolerance: every ``Transition`` field, the final env
+state (every ``CellState`` field, ``done``, ``winner``, ``is_draw``; the
+keys are each package's own) and the opponent state exact (the unfused
+SimpleAgents' on the agents alive at the end: a dead agent's FSM follows
+the chunk kernel in the port); ``value`` and ``boot_value`` within the
+model's tolerance (0.005), ``logp`` within the logits' (0.02) on the rows of
+live agents --
 a dead agent's stored move is zeroed after its ``logp`` was taken of the
 sampled move, and such rows are masked out of the loss.  Measured: value
 2.3e-4, logp 6.8e-5.
@@ -28,15 +38,12 @@ import pytest
 import torch
 from jax.experimental import io_callback
 
+from pomcpp_tpu.agents.simple_cellular import simple_agent_cell_act
 from pomcpp_tpu.engine import pallas_step as jax_pallas
 from pomcpp_tpu.env import environment as jenv
 from pomcpp_tpu.learner import ppo as jppo
-from pomcpp_tpu_torch.convert import (
-    diff_fields,
-    fsm_to_torch,
-    params_from_jax,
-    to_torch,
-)
+from pomcpp_tpu.strategy.cellular_toolkit import danger_map_cell
+from pomcpp_tpu_torch.convert import diff_fields, params_from_jax, to_torch
 from pomcpp_tpu_torch.env.environment import EnvState, env_reset
 from pomcpp_tpu_torch.learner import ppo as tppo
 
@@ -48,6 +55,15 @@ CASES = {
     "selfplay_fused": dict(fused_env=True),
     "simple_fused": dict(fused_env=True, opponent="simple",
                          learner_slots=(0,)),
+    "random": dict(opponent="random", learner_slots=(0,)),
+    "harmless": dict(opponent="harmless", learner_slots=(0,)),
+    "lazy": dict(opponent="lazy", learner_slots=(0,)),
+    "simple_unfused": dict(opponent="simple", learner_slots=(0,)),
+    "frozen": dict(opponent="frozen", learner_slots=(0,)),
+    "frozen_simple_unfused": dict(opponent="frozen+simple",
+                                  learner_slots=(0,), frozen_slots=(1,)),
+    "frozen_simple_fused": dict(opponent="frozen+simple", learner_slots=(0,),
+                                frozen_slots=(1,), fused_env=True),
 }
 
 
@@ -79,24 +95,59 @@ def start_boards():
         is_draw=jnp.asarray(es.is_draw.numpy()))
 
 
+def _joint_with_rands(cs, asts, rands):
+    """JAX's ``simple_agent_cell_joint`` of one board on given rands."""
+    dmap = danger_map_cell(cs)
+    ids = jnp.arange(4, dtype=jnp.int32)
+    moves, _, asts2 = jax.vmap(
+        lambda aid, ast, r: simple_agent_cell_act(cs, aid, ast, r, dmap)
+    )(ids, asts, rands)
+    return moves, asts2
+
+
 class Recorder:
-    """Wraps the JAX env functions that ``collect_rollout_batch`` calls."""
+    """Wraps the JAX env functions that ``collect_rollout_batch`` calls,
+    and its scripted opponents: the random, harmless and lazy moves are
+    recorded, the unfused SimpleAgents act on rands from the same table as
+    the in-kernel ones; the moves each env step takes are recorded too
+    (the frozen slots' moves are read from them)."""
 
     def __init__(self, monkeypatch, rands):
         self.fresh, self.rands = [], rands
+        self.env_moves, self.opp_moves = [], []
         self.count = itertools.count()
+        self.opp_count = itertools.count()
         step, step_fsm = (jenv.env_step_auto_reset_batch,
                           jenv.env_step_auto_reset_batch_fsm)
+        opponents = jppo._opponent_moves_batch
 
-        def record(es, rp):
+        def record(es, rp, moves):
             games = jax.vmap(lambda k: jenv._fresh(k, "cellular", rp))(es.key)
             jax.debug.callback(
                 lambda g: self.fresh.append(jax.tree.map(np.asarray, g)),
                 games.game, ordered=True)
+            jax.debug.callback(
+                lambda m: self.env_moves.append(np.asarray(m)), moves,
+                ordered=True)
+
+        def wrapped_opp(name, keys, games, opp_state):
+            if name == "simple":
+                rand = io_callback(
+                    lambda: self.rands[next(self.opp_count)],
+                    jax.ShapeDtypeStruct((B, 4), jnp.int32), ordered=True)
+                moves, opp2 = jax.vmap(_joint_with_rands)(games, opp_state,
+                                                         rand)
+                return jnp.where(games.agent_dead, 0, moves).astype(
+                    jnp.int32), opp2
+            moves, opp2 = opponents(name, keys, games, opp_state)
+            jax.debug.callback(
+                lambda m: self.opp_moves.append(np.asarray(m)), moves,
+                ordered=True)
+            return moves, opp2
 
         def wrapped(es, moves, team_mode=False, fused=False, max_steps=0,
                     randomize_positions=False):
-            record(es, randomize_positions)
+            record(es, randomize_positions, moves)
             return step(es, moves, team_mode=team_mode, fused=fused,
                         max_steps=max_steps,
                         randomize_positions=randomize_positions)
@@ -104,7 +155,7 @@ class Recorder:
         def wrapped_fsm(es, moves, fsm, slots, seed, team_mode=False,
                         max_steps=0, interpret=False, rand_moves=None,
                         randomize_positions=False):
-            record(es, randomize_positions)
+            record(es, randomize_positions, moves)
             rand = io_callback(lambda: self.rands[next(self.count)],
                                jax.ShapeDtypeStruct((B, 4), jnp.int32),
                                ordered=True)
@@ -115,6 +166,7 @@ class Recorder:
 
         monkeypatch.setattr(jenv, "env_step_auto_reset_batch", wrapped)
         monkeypatch.setattr(jenv, "env_step_auto_reset_batch_fsm", wrapped_fsm)
+        monkeypatch.setattr(jppo, "_opponent_moves_batch", wrapped_opp)
         monkeypatch.setattr(jax_pallas, "pallas_step", functools.partial(
             jax_pallas.pallas_step, interpret=True))
 
@@ -143,19 +195,34 @@ def test_collect_rollout_batch_matches_jax(monkeypatch, start_boards, case):
     ts = jppo.ppo_init(jax.random.PRNGKey(0), cfg_j)
     es_j = start_boards
     hooks = {}
+    frozen = cfg_j.opponent.startswith("frozen")
+    frozen_j = jppo.ppo_init(jax.random.PRNGKey(1), cfg_j).params \
+        if frozen else None
     if cfg_j.opponent:
         opp0 = jppo.opponent_state_init(B, cfg_j)
         fin_j, traj_j, boot_j, opp_j = jax.jit(functools.partial(
-            jppo.collect_rollout_batch, cfg=cfg_j, time_major=True))(
-                ts.params, es_j, opp_state=opp0)
-        hooks = dict(opp_state=fsm_to_torch(opp0, "cpu"),
-                     rand_moves=torch.from_numpy(rands))
+            jppo.collect_rollout_batch, cfg=cfg_j, time_major=True,
+            frozen_params=frozen_j))(ts.params, es_j, opp_state=opp0)
+        kind = type(tppo.opponent_state_init(1, cfg_t, "cpu"))
+        hooks = dict(opp_state=kind(*(torch.from_numpy(np.array(a))
+                                      for a in opp0)),
+                     rand_moves=torch.from_numpy(rands),
+                     opp_rands=torch.from_numpy(rands))
+        if rec.opp_moves:
+            hooks["opp_moves"] = torch.from_numpy(np.stack(rec.opp_moves))
+        if frozen:
+            slots = tppo._roles(cfg_t)[1]
+            hooks["frozen_model"] = _port_model(frozen_j)
+            hooks["frozen_moves"] = torch.from_numpy(
+                np.stack(rec.env_moves)[:, :, list(slots)])
     else:
         fin_j, traj_j, boot_j = jax.jit(functools.partial(
             jppo.collect_rollout_batch, cfg=cfg_j, time_major=True))(
                 ts.params, es_j)
     jax.block_until_ready(traj_j)
-    assert len(rec.fresh) == T
+    assert len(rec.fresh) == len(rec.env_moves) == T
+    assert len(rec.opp_moves) == (T if cfg_j.opponent in ("random", "harmless",
+                                                          "lazy") else 0)
 
     out = tppo.collect_rollout_batch(
         _port_model(ts.params), _to_port(es_j), cfg_t,
@@ -181,8 +248,18 @@ def test_collect_rollout_batch_matches_jax(monkeypatch, start_boards, case):
         assert np.array_equal(np.asarray(getattr(fin_j, name)),
                               getattr(fin_t, name).numpy()), name
     if cfg_j.opponent:
+        assert len(opp_j) == len(out[3])
+        # The unfused SimpleAgents' state: a dead agent's follows the chunk
+        # kernel's rule in the port (agents/simple_cellular.py), so the rows
+        # held are those of the agents alive at the end of the window (a
+        # reset gives every row a fresh state); the kernel's state, all.
+        rows = ~np.asarray(fin_j.game.agent_dead) \
+            if type(out[3]).__name__ == "SimpleAgentState" \
+            else np.ones((B, 4), bool)
+        assert rows.sum() >= 2 * B
         for k, (a, b) in enumerate(zip(opp_j, out[3])):
-            assert np.array_equal(np.asarray(a), b.numpy()), f"FSM array {k}"
+            assert np.array_equal(np.asarray(a)[rows], b.numpy()[rows]), \
+                f"opponent state array {k}"
     # The window holds what it is meant to hold.
     tr = traj_t
     assert int((~tr.valid).sum()) >= 3 and int(tr.draw.sum()) >= 2

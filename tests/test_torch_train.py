@@ -115,7 +115,8 @@ def test_collector_needs_its_generators_and_slots():
 
 def test_train_ppo_script_trains_saves_and_resumes(tmp_path):
     """``python -m pomcpp_tpu_torch.train_ppo`` on the CPU: one metrics
-    line per iteration, a checkpoint the port and its flags read back."""
+    line per iteration, a checkpoint and a resume bundle that the port and
+    its flags read back."""
     from pomcpp_tpu_torch.train_ppo import auto_minibatches
 
     assert auto_minibatches(2048, 64, 1) == 2
@@ -131,7 +132,19 @@ def test_train_ppo_script_trains_saves_and_resumes(tmp_path):
     assert out.returncode == 0, out.stderr
     lines = [line for line in out.stdout.splitlines() if line.startswith("{")]
     assert len(lines) == 2 and '"env_steps_per_s"' in lines[0]
+    # --resume goes on from the bundle's iteration: range(2, 3).
+    out = subprocess.run(base + ["--iters", "3", "--resume"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert f"resumed full bundle from {ck / 'resume'} at iter 2" in out.stdout
+    lines = [line for line in out.stdout.splitlines() if line.startswith("{")]
+    assert len(lines) == 1 and '"update": 3' in lines[0]
+    # Without the bundle, the weights alone.
+    for name in os.listdir(ck / "resume"):
+        os.remove(ck / "resume" / name)
+    os.rmdir(ck / "resume")
     out = subprocess.run(base + ["--iters", "1", "--resume"], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "at update 2" in out.stdout and '"update": 3' in out.stdout
+    assert "at update 3 (no env bundle)" in out.stdout
+    assert '"update": 4' in out.stdout
