@@ -175,6 +175,24 @@ Phases (any failure exits non-zero before the result line):
               stepped by the plain version on the CPU.  The launches of the
               sharded runs, the NCCL rank's data-parallel iteration and the
               recording count as the ``dist`` path's.
+12. exact  -- the exact conformance engine (no kernel of its own).  Held,
+              card against the same call on CPU tensors, every ``State``
+              field bit for bit (every physical queue slot): 1024 reference
+              boards (``init_states_np``, half with kick) x 64 random steps;
+              every 6^4 joint move on the kick-heavy state and the 2x2 ring
+              (``to_state``); ragged and tiny batches (1021, 5, 1); the exact
+              SimpleAgent, 1024 boards x 32 acts of all four agents with
+              injected rands (moves, consumed, agent state, and the exact
+              steps of those moves); ``env_step_auto_reset`` on exact games,
+              1024 x 64 with injected fresh boards.  Then the path at full
+              width through ``divergence_census.run_census``: the random
+              census at 10,000 games x 800 steps as one batch and the
+              SimpleAgent census at 5,000 x 800, per-class counts and ppm
+              beside BASELINE.md's JAX figures, 0 unclassified or the phase
+              fails, game-steps/s and peak memory; a profiling child
+              (``--exact-profile-child``) times one exact step at 10,000
+              boards (ms, PyTorch operators, host reads, the device's idle
+              share from ``torch.profiler``) and a census step's parts.
 
 ``--profile`` builds, runs the env path at full width and then a
 ``torch.profiler`` pass over 32 fused and 32 mixed-control env steps, prints
@@ -185,8 +203,9 @@ path's size, holds their result to the plain build's and prints the share of
 each phase of a step in the summed warp cycles.  It exits with code 4 and
 no result line.
 ``--only=probes,env`` (any of step, fsm, chunk, env, probes, learn, search,
-dist) builds, runs just those held comparisons (for ``learn``, ``search`` and
-``dist``, the whole phase) and exits with code 4 and no result line.
+dist, exact) builds, runs just those held comparisons (for ``learn``,
+``search``, ``dist`` and ``exact``, the whole phase) and exits with code 4 and
+no result line.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -3063,6 +3082,365 @@ def phase_dist(dev) -> dict:
     return res
 
 
+EXACT_HELD_BOARDS, EXACT_HELD_STEPS = 1024, 64
+EXACT_RAGGED = (1021, 5, 1)
+EXACT_RAGGED_STEPS = 24
+EXACT_SIMPLE_ACTS = 32
+EXACT_TIMED_BOARDS = 10000        # the census's batch
+EXACT_WARM_STEPS, EXACT_TIMED_STEPS = 8, 16
+# The census at the JAX script's own sizes (games, step cap, batch).
+EXACT_CENSUS = {"random": (10000, 800, 10000), "simple": (5000, 800, 5000)}
+# BASELINE.md:84-91 (the JAX census, round 5, on the CPU): the reference
+# distribution beside the port's (the moves differ, so not equality).
+BASELINE_CENSUS = {
+    "random": {"games": 10000, "synced_live_board_steps": 277177,
+               "first_divergences": 43, "ppm": 155,
+               "per_class": [29, 10, 4, 0]},
+    "simple": {"games": 5000, "synced_live_board_steps": 1157350,
+               "first_divergences": 857, "ppm": 740,
+               "per_class": [0, 29, 802, 49]},
+}
+
+
+def expect_state_equal(what: str, a, b) -> None:
+    """Every field of two queue-encoded ``State`` batches, every physical
+    queue slot included, bit for bit (``b`` may live on another device)."""
+    import torch
+
+    from pomcpp_tpu_torch.core.state import State
+
+    for name, x, y in zip(State._fields, a, b):
+        pairs = zip(x._fields, x, y) if name in ("bombs", "flames") \
+            else [("", x, y)]
+        for sub, u, v in pairs:
+            if not torch.equal(u.cpu(), v.cpu()):
+                raise AssertionError(f"{what}: card and CPU differ in "
+                                     f"{name}{'.' + sub if sub else ''}")
+
+
+def is_in_danger_cells(s):
+    """bool[B, 4]: each agent stands in a live bomb's cross."""
+    from pomcpp_tpu_torch.strategy.moves import danger_map
+
+    cells = (s.agent_x + 11 * s.agent_y).long()
+    return danger_map(s).gather(1, cells) > 0
+
+
+def exact_start(seeds):
+    """CPU exact states of the reference's boards, kick on odd indices."""
+    from pomcpp_tpu_torch.divergence_census import start_states
+
+    return start_states(list(seeds), "cpu")[0]
+
+
+def held_exact_steps(dev, s, moves, what) -> None:
+    """Step CPU and card copies of ``s`` through ``moves`` ([T, B, 4]),
+    every State field equal after every step."""
+    from pomcpp_tpu_torch.core.state import map_state
+    from pomcpp_tpu_torch.engine.step import step
+
+    card = map_state(lambda t: t.to(dev), s)
+    for t in range(moves.shape[0]):
+        s = step(s, moves[t])
+        card = step(card, moves[t].to(dev))
+        expect_state_equal(f"{what} t={t}", card, s)
+    return s
+
+
+def phase_exact_held(dev) -> dict:
+    """The exact engine, card against the same call on CPU tensors."""
+    import itertools
+
+    import torch
+
+    from pomcpp_tpu_torch.agents.simple import (
+        simple_agent_init_batch,
+        simple_agent_joint,
+    )
+    from pomcpp_tpu_torch.core.board_gen import random_state
+    from pomcpp_tpu_torch.core.state import map_state, stack_states
+    from pomcpp_tpu_torch.engine.cellular import board_of, to_state
+    from pomcpp_tpu_torch.engine.step import step
+    from pomcpp_tpu_torch.env.environment import (
+        env_reset,
+        env_step_auto_reset,
+    )
+
+    t0 = time.perf_counter()
+    b, steps = EXACT_HELD_BOARDS, EXACT_HELD_STEPS
+    gen = torch.Generator().manual_seed(71)
+    moves = torch.randint(0, 6, (steps, b, 4), generator=gen,
+                          dtype=torch.int32)
+    end = held_exact_steps(dev, exact_start(range(b)), moves, "exact random")
+    log(f"[exact] held: {b} reference boards (half with kick) x {steps} "
+        f"random steps: card == CPU, every State field (bombs planted "
+        f"{int(end.bomb_head.sum() + end.bomb_count.sum())}, alive "
+        f"{int(end.alive_count.sum())})")
+    sweep = torch.tensor(list(itertools.product(range(6), repeat=4)),
+                         dtype=torch.int32)
+    for name, cs in (("kick-heavy", kick_heavy_state("cpu")),
+                     ("2x2 ring", ring_state("cpu"))):
+        one = to_state(board_of(cs))
+        s = stack_states([one] * sweep.shape[0])
+        got = step(map_state(lambda t: t.to(dev), s), sweep.to(dev))
+        expect_state_equal(f"exact 6^4 sweep, {name}", got, step(s, sweep))
+    log("[exact] held: every 6^4 joint move, one step, on the kick-heavy "
+        "state and the 2x2 ring: card == CPU")
+    for rb in EXACT_RAGGED:
+        mv = torch.randint(0, 6, (EXACT_RAGGED_STEPS, rb, 4), generator=gen,
+                           dtype=torch.int32)
+        held_exact_steps(dev, exact_start(range(5000, 5000 + rb)), mv,
+                         f"exact ragged {rb}")
+    log(f"[exact] held: ragged and tiny batches {EXACT_RAGGED} x "
+        f"{EXACT_RAGGED_STEPS} steps: card == CPU")
+
+    acts = EXACT_SIMPLE_ACTS
+    rands = torch.randint(0, 5, (acts, b, 4), generator=gen,
+                          dtype=torch.int32)
+    plain_s = exact_start(range(b))
+    card_s = map_state(lambda t: t.to(dev), plain_s)
+    plain_a = simple_agent_init_batch(b, "cpu")
+    card_a = simple_agent_init_batch(b, dev)
+    fled = 0
+    for t in range(acts):
+        mv_p, cons_p, plain_a = simple_agent_joint(plain_s, plain_a, rands[t])
+        mv_c, cons_c, card_a = simple_agent_joint(card_s, card_a,
+                                                  rands[t].to(dev))
+        expect_fsm_equal(f"exact SimpleAgent t={t}",
+                         [mv_c.cpu(), cons_c.cpu(), *(x.cpu() for x in card_a)],
+                         [mv_p, cons_p, *plain_a])
+        fled += int((is_in_danger_cells(plain_s) & (mv_p != 0)).sum())
+        plain_s = step(plain_s, torch.where(plain_s.agent_dead, 0, mv_p))
+        card_s = step(card_s, torch.where(card_s.agent_dead, 0, mv_c))
+        expect_state_equal(f"exact SimpleAgent play t={t}", card_s, plain_s)
+    assert fled > 0, "exact SimpleAgent: no agent fled a bomb"
+    log(f"[exact] held: the exact SimpleAgent, {b} boards x {acts} acts of "
+        f"all four agents with injected rands: moves, consumed and agent "
+        f"state card == CPU ({fled} moves out of danger), and the exact "
+        f"steps of those moves")
+
+    plain = env_reset(9, b, engine="exact", device="cpu")
+    dead = torch.zeros((b, 4), dtype=torch.bool)
+    dead[: b // 16, 1:] = True
+    dead[b // 16: b // 8] = True
+    plain = plain._replace(
+        game=plain.game._replace(
+            agent_dead=dead, alive_count=4 - dead.sum(1, dtype=torch.int32)),
+        done=torch.arange(b) % 16 == 5)
+    card = plain._replace(game=map_state(lambda t: t.to(dev), plain.game),
+                          **{k: getattr(plain, k).to(dev)
+                             for k in ("done", "winner", "is_draw", "key")})
+    seen = dict(resets=0, wins=0, draws=0)
+    for t in range(steps):
+        key = torch.stack([torch.full((b,), 77), torch.arange(b),
+                           torch.full((b,), t)], 1)
+        fresh = random_state(key)
+        seen["resets"] += int(plain.done.sum())
+        nxt = env_step_auto_reset(plain, moves[t], max_steps=24, fresh=fresh,
+                                  device="cpu")
+        new = nxt.done & ~plain.done
+        seen["wins"] += int((new & ~nxt.is_draw).sum())
+        seen["draws"] += int((new & nxt.is_draw).sum())
+        plain = nxt
+        card = env_step_auto_reset(card, moves[t].to(dev), max_steps=24,
+                                   fresh=map_state(lambda x: x.to(dev), fresh),
+                                   device=dev)
+        expect_state_equal(f"exact env t={t}", card.game, plain.game)
+        for name in ("done", "winner", "is_draw", "key"):
+            if not torch.equal(getattr(card, name).cpu(),
+                               getattr(plain, name)):
+                raise AssertionError(f"exact env t={t}: card and CPU differ "
+                                     f"in {name}")
+    assert min(seen.values()) > 0, f"exact env: {seen}"
+    log(f"[exact] held: env_step_auto_reset on exact games, {b} x {steps} "
+        f"with injected fresh boards and a step cap of 24: card == CPU "
+        f"({seen})")
+    return {"held_s": time.perf_counter() - t0}
+
+
+def exact_step_profile(dev) -> dict:
+    """ms per exact step at ``EXACT_TIMED_BOARDS`` boards (host clock over
+    synchronised steps), PyTorch operators and host reads per step, and the
+    device's idle share from ``torch.profiler`` over a few steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pomcpp_tpu_torch.core.state import map_state
+    from pomcpp_tpu_torch.engine import flames
+    from pomcpp_tpu_torch.engine.step import step
+
+    b = EXACT_TIMED_BOARDS
+    gen = torch.Generator(device=dev).manual_seed(73)
+    s = map_state(lambda t: t.to(dev), exact_start(range(b)))
+
+    def moves():
+        return torch.randint(0, 6, (b, 4), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    for _ in range(EXACT_WARM_STEPS):
+        s = step(s, moves())
+    torch.cuda.synchronize()
+    reads0 = flames.HOST_READS[0]
+    t0 = time.perf_counter()
+    for _ in range(EXACT_TIMED_STEPS):
+        s = step(s, moves())
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / EXACT_TIMED_STEPS
+    reads = (flames.HOST_READS[0] - reads0) / EXACT_TIMED_STEPS
+    mv = moves()
+    ops = device_ops(lambda: step(s, mv))
+    prof_steps = 4
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(prof_steps):
+            s = step(s, moves())
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) / prof_steps
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("[exact] torch.profiler recorded no device "
+                           "activity over the exact steps")
+    device = sum(e.device_time_total for e in events) / prof_steps / 1e6
+    return {"boards": b, "ms_per_step": wall * 1e3,
+            "census_parts_ms": census_parts(dev, s),
+            "operators_per_step": len(ops),
+            "host_reads_per_step": reads,
+            "kernels_per_step": sum(e.count for e in events) / prof_steps,
+            "device_ms_per_step": device * 1e3,
+            "profiled_ms_per_step": prof_wall * 1e3,
+            "idle_share": 1 - device / prof_wall,
+            "alive_after": int(s.alive_count.sum())}
+
+
+def census_parts(dev, s) -> dict:
+    """Host-clocked ms of each part of a SimpleAgent census step on the
+    first ``EXACT_CENSUS["simple"]`` boards of ``s`` (synchronised after
+    each part, a few steps each): the plane SimpleAgent's act, the exact
+    step, the plane step, and the conversion and comparison."""
+    import torch
+
+    from pomcpp_tpu_torch.agents.simple import simple_agent_init
+    from pomcpp_tpu_torch.agents.simple_cellular import simple_agent_cell_joint
+    from pomcpp_tpu_torch.core.state import map_state
+    from pomcpp_tpu_torch.divergence_census import _equal_boards
+    from pomcpp_tpu_torch.engine.cellular import cellular_step, from_state
+    from pomcpp_tpu_torch.engine.step import step
+
+    b = EXACT_CENSUS["simple"][0]
+    s = map_state(lambda t: t[:b].contiguous(), s)
+    c = from_state(s)
+    ps = simple_agent_init((b, 4), dev)
+    gen = torch.Generator(device=dev).manual_seed(79)
+    parts = dict.fromkeys(("act", "exact_step", "plane_step",
+                           "convert_compare"), 0.0)
+    reps = 4
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] += (time.perf_counter() - t0) * 1e3 / reps
+        return out
+
+    for _ in range(reps):
+        rands = torch.randint(0, 5, (b, 4), generator=gen, device=dev,
+                              dtype=torch.int32)
+        mv, _, ps = timed("act", lambda: simple_agent_cell_joint(c, ps, rands))
+        mv = torch.where(c.agent_dead, 0, mv).to(torch.int32)
+        s2 = timed("exact_step", lambda: step(s, mv))
+        c2 = timed("plane_step", lambda: cellular_step(c, mv))
+        timed("convert_compare", lambda: _equal_boards(from_state(s2), c2))
+        s, c = s2, from_state(s2)
+    return {"boards": b, **parts}
+
+
+def exact_profile() -> dict:
+    """``exact_step_profile`` in a child process (``--exact-profile-child``;
+    a third profiler session in one process records no device activity);
+    its JSON line."""
+    proc = subprocess.run([sys.executable, __file__, "--exact-profile-child"],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"[exact] the profiling child failed: "
+                           f"{proc.stderr[-2000:]}")
+    line = [s for s in proc.stdout.splitlines()
+            if s.startswith("EXACT_PROFILE ")][-1]
+    return json.loads(line.split(" ", 1)[1])
+
+
+def phase_exact_main(dev) -> dict:
+    """The exact engine's main path at full width: the divergence census
+    (random and SimpleAgent) through ``divergence_census.run_census``."""
+    import torch
+
+    from pomcpp_tpu_torch.divergence_census import run_census
+
+    smi = nvidia_smi_line()
+    prof = exact_profile()
+    log(f"[exact] {prof['boards']} boards: {prof['ms_per_step']:.3f} ms per "
+        f"exact step (host clock), {prof['operators_per_step']} PyTorch "
+        f"operators and {prof['host_reads_per_step']:.2f} host reads per "
+        f"step; torch.profiler: {prof['kernels_per_step']:.1f} kernels and "
+        f"copies, {prof['device_ms_per_step']:.3f} ms of device time per "
+        f"step: device idle {prof['idle_share']:.3f} of the time, on {smi}")
+    parts = prof["census_parts_ms"]
+    log(f"[exact] a SimpleAgent census step at {parts['boards']} boards, "
+        f"host-clocked ms by part: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in parts.items() if k != "boards")
+        + f", on {smi}")
+    out = {"step": prof, "census": {}}
+    for policy, (games, steps, batch) in EXACT_CENSUS.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_census(games, steps, batch, 0, policy, dev,
+                         log=lambda m: log(f"[exact] census {policy}: {m}"))
+        res["peak_mib_above_start"] = \
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        res["game_steps_per_s"] = res["synced_live_board_steps"] / res["seconds"]
+        res["board_steps_per_s"] = res["board_steps_run"] / res["seconds"]
+        live = res["synced_live_board_steps"]
+        res["ppm_per_class"] = {k: 1e6 * v / max(live, 1)
+                                for k, v in res["class_counts"].items()}
+        ref = BASELINE_CENSUS[policy]
+        log(f"[exact] census {policy}: {games} games x {steps} steps in one "
+            f"batch of {batch}: {res['first_divergences']} first divergences "
+            f"in {live} synced live board-steps = {res['divergence_ppm']} ppm, "
+            f"per class {list(res['class_counts'].values())} "
+            f"({', '.join(f'{v:.1f}' for v in res['ppm_per_class'].values())}"
+            f" ppm); JAX reference distribution (BASELINE.md, other moves): "
+            f"{ref['first_divergences']} in {ref['synced_live_board_steps']} "
+            f"= {ref['ppm']} ppm, per class {ref['per_class']}; "
+            f"unclassified {res['unclassified']}")
+        log(f"[exact] census {policy}: {res['seconds']:.1f} s, "
+            f"{res['lockstep_steps']} lockstep steps, "
+            f"{res['game_steps_per_s']:.1f} synced game-steps/s, "
+            f"{res['board_steps_per_s']:.1f} board-steps/s stepped, peak "
+            f"{res['peak_mib_above_start']:.1f} MiB above the start, on {smi}")
+        if res["unclassified"]:
+            raise AssertionError(f"[exact] census {policy}: unclassified "
+                                 f"first divergences at "
+                                 f"{res['unclassified_at']}")
+        out["census"][policy] = res
+    return out
+
+
+def phase_exact(dev) -> dict:
+    """The exact conformance engine: held card-vs-CPU runs, then the
+    divergence census at full width."""
+    t0 = time.perf_counter()
+    held = phase_exact_held(dev)
+    log(f"[exact] held part took {held['held_s']:.1f} s")
+    res = phase_exact_main(dev)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"[exact] {json.dumps(res)}")
+    log(f"[exact] phase took {res['phase_s']:.1f} s")
+    return res
+
+
 def bound_ms(board_steps: int, bytes_moved: int, rates) -> tuple[float, str]:
     """Least time: bytes over the memory rate vs one 32-bit instruction per
     state value per board-step (7 planes x 121 cells) over the issue rate
@@ -3075,7 +3453,7 @@ def bound_ms(board_steps: int, bytes_moved: int, rates) -> tuple[float, str]:
 HELD_PHASES = {"step": phase_step, "fsm": phase_fsm, "chunk": phase_chunk,
                "env": phase_env_held, "probes": phase_probes_held,
                "learn": phase_learn, "search": phase_search,
-               "dist": phase_dist}
+               "dist": phase_dist, "exact": phase_exact}
 
 
 def main() -> int:
@@ -3093,6 +3471,9 @@ def main() -> int:
     dev = torch.device("cuda")
     if "--search-profile-child" in sys.argv[1:]:
         print("SEARCH_PROFILE " + json.dumps(search_profile_child()))
+        return 0
+    if "--exact-profile-child" in sys.argv[1:]:
+        print("EXACT_PROFILE " + json.dumps(exact_step_profile(dev)))
         return 0
     child = {"--dist-child": lambda a: dist_child(*map(int, a)),
              "--nccl-child": lambda a: nccl_child(int(a[0])),
@@ -3138,6 +3519,7 @@ def main() -> int:
     learn = phase_learn(dev)
     search = phase_search(dev)
     dist = phase_dist(dev)
+    phase_exact(dev)
     torch.cuda.synchronize()
 
     paths = {"main": main_res["launches"], "env": env_res["launches"],

@@ -591,34 +591,39 @@ def board_of(cs: CellState, i: int = 0) -> CellState:
 
 
 def from_state(s) -> CellState:
-    """Scatter a queue-encoded ``State`` (one board) into planes -> a
-    ``CellState`` of one board, without a batch axis, on ``s``'s device.
+    """Scatter queue-encoded ``State``s into planes, on ``s``'s device.
 
+    A batch (leading axis B on every field) gives a ``CellState`` batch;
+    one board without a batch axis gives one board without it.
     ``bomb_*`` planes take the maximum over the live records on each cell
     (with 0); a FLAME cell's timer is the most over the live flame records
     whose origin matches its ``flame_sig``."""
     from ..core.queue import logical_view
+    from ..core.state import map_state
 
+    if s.board.dim() == 1:
+        return board_of(from_state(map_state(lambda t: t[None], s)))
     dev = s.board.device
-    li = torch.arange(s.bombs.x.shape[0], device=dev)
+    b = s.board.shape[0]
+    li = torch.arange(s.bombs.x.shape[1], device=dev)
     bx = logical_view(s.bombs.x, s.bomb_head)
     by = logical_view(s.bombs.y, s.bomb_head)
-    valid = li < s.bomb_count
+    valid = li < s.bomb_count[:, None]
     c = (bx + BOARD_SIZE * by).clamp(0, NUM_CELLS - 1).long()
-    zero = torch.zeros(NUM_CELLS, dtype=I32, device=dev)
+    zero = torch.zeros((b, NUM_CELLS), dtype=I32, device=dev)
 
     def scat(field):
         vals = torch.where(valid, logical_view(field, s.bomb_head), 0).to(I32)
-        return zero.scatter_reduce(0, c, vals, "amax")
+        return zero.scatter_reduce(1, c, vals, "amax")
 
-    fli = torch.arange(s.flames.x.shape[0], device=dev)
+    fli = torch.arange(s.flames.x.shape[1], device=dev)
     fx = logical_view(s.flames.x, s.flame_head)
     fy = logical_view(s.flames.y, s.flame_head)
     ft = logical_view(s.flames.timer, s.flame_head)
-    fvalid = fli < s.flame_count
-    match = fvalid[None, :] & ((fx + BOARD_SIZE * fy)[None, :]
-                               == s.flame_sig[:, None])
-    flame_timer = torch.where(match, ft[None, :], 0).amax(1) \
+    fvalid = fli < s.flame_count[:, None]
+    match = fvalid[:, None, :] & ((fx + BOARD_SIZE * fy)[:, None, :]
+                                  == s.flame_sig[:, :, None])
+    flame_timer = torch.where(match, ft[:, None, :], 0).amax(2) \
         * (s.board == C_FLAME)
     return CellState(
         board=s.board, hidden_pow=s.hidden_pow,
@@ -657,7 +662,7 @@ def to_state(cs: CellState):
     ft = host(cs.flame_timer)
     forder = sorted(np.nonzero((ft > 0) & (board == C_FLAME))[0].tolist(),
                     key=lambda c: int(ft[c]))
-    s = empty_state(dev)
+    s = empty_state(None, dev)
     bombs = {k: host(v) for k, v in s.bombs._asdict().items()}
     for i, c in enumerate(order):
         bombs["x"][i], bombs["y"][i] = c % BOARD_SIZE, c // BOARD_SIZE

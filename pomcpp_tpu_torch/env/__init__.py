@@ -1,6 +1,7 @@
 from .environment import (  # noqa: F401
     EnvState,
     env_reset,
+    env_reset_np,
     env_step,
     env_step_auto_reset,
     env_step_auto_reset_batch,

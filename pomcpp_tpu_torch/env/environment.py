@@ -21,8 +21,13 @@ form of its JAX counterpart -- there is no ``vmap`` here:
   follows as ``env_merge_kernel``: two launches
 * ``act_all`` / ``rollout`` / ``rollout_stateful`` -- policy loops
 
-Only the plane-encoded ``CellState`` is ported; the queue-encoded exact
-engine (``engine="exact"``) is not, and asking for it raises.
+Two engines, chosen by the game's type as the JAX ``_step_fn`` chooses:
+the plane-encoded ``CellState`` steps through ``cellular_step`` (the port's
+default, ``engine="cellular"``), the queue-encoded ``State`` through the
+exact conformance engine ``engine.step.step`` (``engine="exact"``, the JAX
+package's default; ``env_reset_np(seed)`` gives the reference's own board
+for a seed).  The fused paths (``fused=True``, the mixed-control step) are
+CellState-only, as in JAX.
 
 Reset stream.  JAX keys cannot be reproduced, so ``EnvState.key`` is the
 port's own reset stream: i64[B, 3] holding, per board, ``(seed, board id,
@@ -37,7 +42,10 @@ counter word (``STREAM_MOVES/CELLS/FLAGS``), so an env reset never repeats
 a chunk's draws even under the same seed.  A reset therefore needs no host
 generator; it is a pure function of the key row.  Cell classes and flags
 are read from the 30-bit draws exactly as ``fresh_terrain`` reads them
-(same distribution as ``random_board_fast``).
+(same distribution as ``random_board_fast``).  An exact game's reset
+(``core.board_gen.random_state``) draws from the same counter words, with
+stream ``STREAM_ENV_RANKS = 6`` ranking the wood cells of which exactly
+``ceil(n_wood / 2)`` carry a flag.
 
 Parity with the JAX package goes through ``fresh=``: a ``CellState`` batch
 that replaces the port's own reset draw (the test computes the JAX side's
@@ -58,20 +66,26 @@ from typing import NamedTuple
 import torch
 
 from .. import _ext
-from ..core.board_gen import put_agents_in_corners_perm
-from ..core.constants import AGENT_COUNT, C_PASSAGE, C_RIGID, C_WOOD, NUM_CELLS
-from ..core.state import I32, put_agents_in_corners
+from ..core.board_gen import (
+    STREAM_ENV_CELLS,
+    STREAM_ENV_FLAGS,
+    STREAM_ENV_SEATS,
+    cell_draws,
+    init_state_np,
+    key_words,
+    put_agents_in_corners_perm,
+    random_state,
+    seat_perm,
+    terrain_of,
+)
+from ..core.constants import AGENT_COUNT, C_WOOD
+from ..core.state import I32, State, map_state, put_agents_in_corners
 from ..device import resolve_device
 from ..engine.cellular import CellState, cellular_step, empty_cell_state
-from ..engine.fused_step import (
-    _draw30,
-    fused_step,
-    game_arrays,
-    philox4x32,
-    rollout_chunk,
-)
+from ..engine.fused_step import fused_step, game_arrays, rollout_chunk
+from ..engine.step import step as exact_step
 
-STREAM_ENV_CELLS, STREAM_ENV_FLAGS, STREAM_ENV_SEATS = 3, 4, 5
+ENGINES = ("cellular", "exact")
 
 # Classic Pommerman 2v2 teams: agents {0, 2} vs {1, 3}.
 TEAM_OF = (0, 1, 0, 1)
@@ -85,17 +99,22 @@ class EnvState(NamedTuple):
     key: torch.Tensor      # i64[B, 3]: seed, board id, resets drawn so far
 
 
-def _require_cellular(engine: str) -> None:
-    if engine != "cellular":
-        raise NotImplementedError(
-            f"engine={engine!r}: only the plane-encoded CellState "
-            "(engine='cellular') is ported; the queue-encoded exact engine "
-            "is not part of the port yet"
-        )
+def _game_map(fn, *games):
+    """Apply ``fn`` field-wise over games of one type (CellState or
+    State)."""
+    if isinstance(games[0], State):
+        return map_state(fn, *games)
+    return CellState(*map(fn, *games))
+
+
+def _step_fn(game):
+    """Dispatch on the state representation: exact queues vs cellular
+    planes (the JAX ``_step_fn``)."""
+    return exact_step if isinstance(game, State) else cellular_step
 
 
 def _env_to_device(es: EnvState, device) -> EnvState:
-    return EnvState(CellState(*(t.to(device) for t in es.game)),
+    return EnvState(_game_map(lambda t: t.to(device), es.game),
                     *(t.to(device) for t in es[1:]))
 
 
@@ -104,42 +123,36 @@ def _where_env(mask, a: EnvState, b: EnvState) -> EnvState:
     def pick(x, y):
         return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
 
-    return EnvState(CellState(*map(pick, a.game, b.game)),
-                    *map(pick, a[1:], b[1:]))
+    return EnvState(_game_map(pick, a.game, b.game), *map(pick, a[1:], b[1:]))
 
 
-def _draw_fresh_game(key, randomize_positions: bool) -> CellState:
+def _draw_fresh_game(key, randomize_positions: bool,
+                     engine: str = "cellular"):
     """The reset boards of the key rows ``key`` (see the module docstring)."""
+    if engine == "exact":
+        return random_state(key, randomize_positions)
     n, dev = key.shape[0], key.device
-    seed, board_id, count = (key[:, k, None, None] for k in range(3))
     streams = (STREAM_ENV_CELLS, STREAM_ENV_FLAGS) + \
         ((STREAM_ENV_SEATS,) if randomize_positions else ())
-    stream = torch.tensor(streams, dtype=torch.int64, device=dev)[None, :, None]
-    group = torch.arange((NUM_CELLS + 3) // 4, dtype=torch.int64,
-                         device=dev)[None, None, :]
-    words = torch.stack(philox4x32(board_id, count, stream, group, seed), 3)
-    draws = _draw30(words.reshape(n, len(streams), -1)[:, :2, :NUM_CELLS])
+    words = key_words(key, streams)
+    draws = cell_draws(words[:, :2])
     tmp, flags = draws[:, 0] % 7, draws[:, 1]
-    board = torch.full_like(tmp, C_PASSAGE)
-    board = torch.where(tmp == 1, C_RIGID, board)
-    board = torch.where(tmp == 2, C_WOOD, board)
+    board = terrain_of(tmp)
     hidden = torch.where(
         (board == C_WOOD) & ((flags & 1) == 0), (flags >> 1) % 4 + 1, 0
     )
     cs = empty_cell_state(n, dev)._replace(board=board, hidden_pow=hidden)
     if not randomize_positions:
         return put_agents_in_corners(cs)
-    # Four 32-bit words ranked; the seat index in the low bits breaks ties.
-    seat = torch.arange(AGENT_COUNT, dtype=torch.int64, device=dev)
-    perm = ((words[:, 2, 0, :] & ~3) | seat).argsort(1)
-    return put_agents_in_corners_perm(cs, perm)
+    return put_agents_in_corners_perm(cs, seat_perm(words[:, 2]))
 
 
-def _fresh(key, randomize_positions: bool = False, game=None) -> EnvState:
+def _fresh(key, randomize_positions: bool = False, game=None,
+           engine: str = "cellular") -> EnvState:
     """Fresh games for the key rows; ``game`` replaces the port's draw."""
     n, dev = key.shape[0], key.device
     if game is None:
-        game = _draw_fresh_game(key, randomize_positions)
+        game = _draw_fresh_game(key, randomize_positions, engine)
     step = torch.tensor([0, 0, 1], dtype=torch.int64, device=dev)
     return EnvState(
         game=game,
@@ -150,21 +163,51 @@ def _fresh(key, randomize_positions: bool = False, game=None) -> EnvState:
     )
 
 
+def _check_fused_game(game) -> None:
+    if isinstance(game, State):
+        raise ValueError("the fused paths step the kernels, which take the "
+                         "plane-encoded CellState only; build the batch with "
+                         "env_reset(..., engine='cellular')")
+
+
+def _engine_of(game) -> str:
+    return "exact" if isinstance(game, State) else "cellular"
+
+
 def env_reset(seed: int, b: int, randomize_positions: bool = False,
               engine: str = "cellular", device=None) -> EnvState:
     """``b`` fresh games on ``device`` (None: the card).
 
+    ``engine="cellular"`` (the port's default) gives plane-encoded
+    ``CellState`` games, ``engine="exact"`` queue-encoded ``State`` games
+    for the exact conformance engine (the JAX package's default).
     ``randomize_positions`` draws which agent sits in which corner (the
     reference ``MakeGame``'s optional shuffle); off by default.
     """
-    _require_cellular(engine)
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, not {engine!r}")
     if not 0 <= seed < 2 ** 63:
         raise ValueError("seed must be in [0, 2^63)")
     device = resolve_device(device)
     key = torch.zeros((b, 3), dtype=torch.int64, device=device)
     key[:, 0] = seed
     key[:, 1] = torch.arange(b, device=device)
-    return _fresh(key, randomize_positions)
+    return _fresh(key, randomize_positions, engine=engine)
+
+
+def env_reset_np(seed: int = 0x1337, device=None, **kw) -> EnvState:
+    """One exact game on the reference's own board for ``seed`` (drawn on
+    the host, ``core.board_gen.init_state_np``): a batch of one.  Its key
+    row is ``(seed, 0, 0)``."""
+    game = init_state_np(seed, device=device, **kw)
+    dev = game.board.device
+    return EnvState(
+        game=game,
+        done=torch.zeros(1, dtype=torch.bool, device=dev),
+        winner=torch.full((1,), -1, dtype=I32, device=dev),
+        is_draw=torch.zeros(1, dtype=torch.bool, device=dev),
+        key=torch.tensor([[seed, 0, 0]], dtype=torch.int64, device=dev),
+    )
 
 
 def _detect_terminal(es: EnvState, team_mode: bool = False,
@@ -206,11 +249,12 @@ def _prepare(es: EnvState, moves, device):
 
 def env_step(es: EnvState, moves, team_mode: bool = False,
              max_steps: int = 0, device=None) -> EnvState:
-    """One simultaneous step (``cellular_step``) + timestep advance +
-    terminal detection.  A finished game is frozen: stepping it is a no-op.
+    """One simultaneous step (``cellular_step``, or the exact ``step`` on a
+    ``State`` game) + timestep advance + terminal detection.  A finished
+    game is frozen: stepping it is a no-op.
     """
     es, moves, _ = _prepare(es, moves, device)
-    game = cellular_step(es.game, moves)
+    game = _step_fn(es.game)(es.game, moves)
     game = game._replace(timestep=game.timestep + 1)
     nxt = _detect_terminal(es._replace(game=game), team_mode, max_steps)
     return _where_env(es.done, es, nxt)
@@ -225,8 +269,8 @@ def _merge_done_and_reset(es: EnvState, game: CellState, team_mode: bool,
     ``es.done`` of *before* the step: a board that finishes now latches its
     result and keeps its terminal state for one step; a board that was
     already done is replaced by a fresh game keyed from ``es.key``.
-    ``fresh`` (test hook) is a ``CellState`` batch taken instead of the
-    port's own reset draw.
+    ``fresh`` (test hook) is a batch of games of ``game``'s type taken
+    instead of the port's own reset draw.
 
     This is the plain version of the env kernels' epilogue
     (``csrc/env_warp.cuh``), which the env functions run on CPU tensors.
@@ -242,12 +286,12 @@ def _merge_done_and_reset(es: EnvState, game: CellState, team_mode: bool,
     idx = es.done.nonzero()[:, 0]          # host read: which boards reset
     if idx.numel() == 0:
         return nxt
-    new = _fresh(es.key[idx], randomize_positions)
+    new = _fresh(es.key[idx], randomize_positions, engine=_engine_of(game))
 
     def put(x, y):
         return x.index_copy(0, idx, y)
 
-    return EnvState(CellState(*map(put, nxt.game, new.game)),
+    return EnvState(_game_map(put, nxt.game, new.game),
                     *map(put, nxt[1:], new[1:]))
 
 
@@ -257,10 +301,12 @@ def env_step_auto_reset(es: EnvState, moves, team_mode: bool = False,
     """``env_step``, but a game that finished restarts on its next step.
 
     The episode outcome is readable for exactly one step (the step that set
-    ``done``).  ``randomize_positions`` applies to the restarted games.
+    ``done``).  ``randomize_positions`` applies to the restarted games.  An
+    exact game (``State``) restarts as an exact game; ``fresh`` (test hook)
+    is a batch of games of the same type replacing the port's reset draw.
     """
     es, moves, _ = _prepare(es, moves, device)
-    game = cellular_step(es.game, moves)
+    game = _step_fn(es.game)(es.game, moves)
     game = game._replace(timestep=game.timestep + 1)
     return _merge_done_and_reset(es, game, team_mode, max_steps,
                                  randomize_positions, fresh)
@@ -356,6 +402,7 @@ def env_step_auto_reset_batch(es: EnvState, moves, team_mode: bool = False,
     if not fused:
         return env_step_auto_reset(es, moves, team_mode, max_steps,
                                    randomize_positions, fresh, device)
+    _check_fused_game(es.game)
     es, moves, device = _prepare(es, moves, device)
     if device.type == "cuda":
         return _env_launch_cuda(es, team_mode, max_steps, randomize_positions,
@@ -387,6 +434,7 @@ def env_step_auto_reset_batch_fsm(es: EnvState, learner_moves, fsm_state,
     fsm_state')``; the caller owns resetting the ``fsm_state`` rows of
     finished boards.
     """
+    _check_fused_game(es.game)
     es, learner_moves, device = _prepare(es, learner_moves, device)
     slots = tuple(learner_slots)
     mv = learner_moves

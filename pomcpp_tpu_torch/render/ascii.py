@@ -9,7 +9,7 @@ queues.  It reads one board of either encoding -- a queue-encoded ``State``
 arrays, fetching each field to the host once.  Never on the compute path.
 
 ``render_rmap``, ``render_path`` and ``render_dependency*`` draw the exact
-engine's strategy maps and are not ported with it.
+engine's strategy maps (``strategy.rmap``) and are not ported yet.
 """
 
 from __future__ import annotations

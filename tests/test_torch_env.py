@@ -336,8 +336,18 @@ def test_rollout_stateful_resets_policy_state():
 
 
 def test_exact_engine_and_missing_card_are_errors():
-    with pytest.raises(NotImplementedError, match="exact"):
-        tenv.env_reset(0, 2, engine="exact", device="cpu")
+    """The exact engine is ported: ``engine="exact"`` gives queue-encoded
+    games, which the fused paths refuse; an unknown engine and a missing
+    card are errors."""
+    from pomcpp_tpu_torch.core.state import State
+
+    exact = tenv.env_reset(0, 2, engine="exact", device="cpu")
+    assert isinstance(exact.game, State)
+    with pytest.raises(ValueError, match="CellState"):
+        tenv.env_step_auto_reset_batch(exact, np.zeros((2, 4)), fused=True,
+                                       device="cpu")
+    with pytest.raises(ValueError, match="engine"):
+        tenv.env_reset(0, 2, engine="planes", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tenv.env_reset(0, 2)

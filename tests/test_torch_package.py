@@ -1,6 +1,7 @@
 """Package rules of the port: no JAX, explicit devices, lossless conversion."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -115,6 +116,53 @@ def test_learner_entry_points_need_cuda(monkeypatch):
     assert ts2.update_count == 1 and set(metrics) >= {"loss", "episodes"}
 
 
+def test_exact_engine_entry_points_need_cuda(monkeypatch):
+    """The exact engine's constructors, the exact env, the exact
+    SimpleAgent's state and the census run on the card unless the caller
+    names the CPU; the census's ``main`` on the CPU prints its JSON."""
+    from pomcpp_tpu_torch import divergence_census
+    from pomcpp_tpu_torch.agents.simple import simple_agent_init_batch
+    from pomcpp_tpu_torch.core.board_gen import init_state_np, init_states_np
+    from pomcpp_tpu_torch.core.state import empty_state as port_empty_state
+    from pomcpp_tpu_torch.env.environment import (
+        env_reset,
+        env_reset_np,
+        env_step,
+    )
+
+    es = env_reset(1, 2, engine="exact", device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: env_reset(1, 2, engine="exact"),
+        lambda: env_reset_np(7),
+        lambda: init_state_np(7),
+        lambda: init_states_np([1, 2]),
+        lambda: port_empty_state(2),
+        lambda: simple_agent_init_batch(2),
+        lambda: env_step(es, torch.zeros((2, 4), dtype=torch.int32)),
+        lambda: divergence_census.run_census(2, 2, 2),
+        lambda: divergence_census.main(["--games", "2", "--steps", "2"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="engine"):
+        env_reset(1, 2, engine="queue", device="cpu")
+
+
+def test_census_main_runs_on_the_cpu(capsys):
+    from pomcpp_tpu_torch import divergence_census
+
+    assert divergence_census.main(["--games", "4", "--steps", "6",
+                                   "--batch", "3", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["games"] == 4 and out["unclassified"] == 0
+    assert set(out) == {"policy", "games", "steps_cap",
+                        "synced_live_board_steps", "first_divergences",
+                        "divergence_ppm", "class_counts",
+                        "multi_class_steps", "unclassified"}
+
+
 def test_search_arena_and_distill_entry_points_need_cuda(monkeypatch):
     """The planners, ``az_train_step``, ``play_games`` and the three
     ``python -m`` mains run on the card unless the caller names the CPU."""
@@ -155,11 +203,11 @@ def test_search_arena_and_distill_entry_points_need_cuda(monkeypatch):
 
 
 def test_chip_smoke_knows_its_phases():
-    """``--only=`` takes every held phase, the search and dist phases
+    """``--only=`` takes every held phase, the search, dist and exact phases
     included."""
     assert set(chip_smoke.HELD_PHASES) == {"step", "fsm", "chunk", "env",
                                            "probes", "learn", "search",
-                                           "dist"}
+                                           "dist", "exact"}
 
 
 @pytest.mark.parametrize("make", ["empty_cell_state", "simple_agent_init",
@@ -173,7 +221,7 @@ def test_state_constructors_default_to_the_card(monkeypatch, make):
 
     fn, args = {"empty_cell_state": (empty_cell_state, (2,)),
                 "simple_agent_init": (simple_agent_init, ((2, 4),)),
-                "empty_state": (empty_state, ())}[make]
+                "empty_state": (empty_state, (2,))}[make]
 
     def tensors(x):
         return [x] if isinstance(x, torch.Tensor) else \

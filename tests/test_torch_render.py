@@ -70,7 +70,7 @@ def test_empty_state_and_logical_view_match_jax():
     from pomcpp_tpu.core import queue as jq
     from pomcpp_tpu.core.state import empty_state as jempty
 
-    _leaves_equal(jempty(), empty_state("cpu"))
+    _leaves_equal(jempty(), empty_state(device="cpu"))
     f = np.arange(20, dtype=np.int32) * 3
     for head in (0, 7, 19):
         assert np.array_equal(np.asarray(jq.logical_view(jnp.asarray(f), head)),
@@ -186,7 +186,7 @@ def test_replay_written_by_jax_loads_in_the_port(tmp_path):
               for t in (0, 8)]
     stacked = jax.tree.map(lambda *x: jnp.stack(x), *frames)
     jreplay.save_replay(path, stacked, moves_j[:1])
-    loaded, _ = treplay.load_replay(path, empty_state("cpu"))
+    loaded, _ = treplay.load_replay(path, empty_state(device="cpu"))
     _leaves_equal(stacked, loaded)
     assert tascii.render_state(treplay.replay_frame(loaded, 1)) == \
         jascii.render_state(frames[1])
