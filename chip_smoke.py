@@ -193,6 +193,23 @@ Phases (any failure exits non-zero before the result line):
               (``--exact-profile-child``) times one exact step at 10,000
               boards (ms, PyTorch operators, host reads, the device's idle
               share from ``torch.profiler``) and a census step's parts.
+13. tooling -- the exact engine's tooling (no kernel of its own).  The state
+              fuzzer at its script's size (``state_fuzz.find_snapshots``,
+              ``fuzz_state``): n = 5, 15,625 two-step sequences a state in
+              one batched call of two exact steps on the card, over as many
+              of the script's 20 states as fit in ``FUZZ_SECONDS``, every
+              sweep held card == CPU on every oracle dump (and against the
+              compiled C++ oracle where ``tools/build_oracle.sh`` builds it;
+              a line says which), sequences/s, the median sweep's ms and
+              the peak memory; one ``play_demo`` game per policy (500 steps
+              at most, the SimpleAgent's cut to ``DEMO_SIMPLE_STEPS``), every
+              move and state held against the same game on the CPU, ms per
+              step; a
+              120-step random-policy ``replay_viewer`` recording on the card
+              against the CPU's and its frames 10-14 from the npz;
+              ``debug_divergence`` on one 500-board census batch with
+              injected random moves, its report equal to the CPU's.  No
+              kernel of the port may launch on this path.
 
 ``--profile`` builds, runs the env path at full width and then a
 ``torch.profiler`` pass over 32 fused and 32 mixed-control env steps, prints
@@ -203,9 +220,9 @@ path's size, holds their result to the plain build's and prints the share of
 each phase of a step in the summed warp cycles.  It exits with code 4 and
 no result line.
 ``--only=probes,env`` (any of step, fsm, chunk, env, probes, learn, search,
-dist, exact) builds, runs just those held comparisons (for ``learn``,
-``search``, ``dist`` and ``exact``, the whole phase) and exits with code 4 and
-no result line.
+dist, exact, tooling) builds, runs just those held comparisons (for ``learn``,
+``search``, ``dist``, ``exact`` and ``tooling``, the whole phase) and exits
+with code 4 and no result line.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -3441,6 +3458,225 @@ def phase_exact(dev) -> dict:
     return res
 
 
+# The exact engine's tooling at the JAX scripts' own sizes.
+FUZZ_ARGS = {"states": 20, "lo": 20, "hi": 90, "n_moves": 5, "seed": 0}
+FUZZ_SECONDS = 45               # the fuzz's share of the phase
+DEMO_SEED, DEMO_STEPS = 0x1337, 500
+# The exact SimpleAgent's act is host-bound at one board (0.34-0.45 s a
+# step on the H100, PERF.md), and the CPU plays the same acts again to
+# hold the game: its game is cut to this many steps to keep the phase near
+# its 150 s budget and the whole script well inside its time limit.
+DEMO_SIMPLE_STEPS = 32
+VIEW_STEPS, VIEW_FRAMES = 120, "10:14"
+DEBUG_ARGS = {"batch_index": 1, "batch": 500, "steps": 800, "seed": 0}
+# Seeds the debugger's injected random moves: this batch then diverges on
+# 18 board-steps (classes 1, 2 and 4, and unclassified re-divergences after
+# a stacked plant), where seed 83 gave none.
+DEBUG_MOVES_SEED = 85
+TOOLING_OUT = "build/chip_smoke_tooling"
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tooling_fuzz(dev, smi: str) -> dict:
+    """``state_fuzz`` on the card over the script's states (its seeds and
+    snapshot steps, ``find_snapshots``) until ``FUZZ_SECONDS`` pass: every
+    sweep held card == CPU on every dump (and against the oracle where it
+    builds)."""
+    import numpy as np
+    import torch
+
+    from pomcpp_tpu_torch.core.state import map_state
+    from pomcpp_tpu_torch.state_fuzz import (
+        find_snapshots,
+        fuzz_state,
+        two_steps,
+    )
+    from pomcpp_tpu_torch.testing.oracle import ensure_oracle, states_to_dumps
+
+    def cpu_reference(s, mv):
+        return states_to_dumps(two_steps(map_state(lambda t: t.cpu(), s), mv))
+
+    oracle = ensure_oracle()
+    log("[tooling] fuzz: the C++ oracle " + (
+        f"built ({oracle}): each sweep is held against it and against the "
+        f"CPU" if oracle else "is absent on this host (no reference "
+        "sources for tools/build_oracle.sh): each sweep is held card == "
+        "CPU only"))
+    a = FUZZ_ARGS
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    sweeps = []
+    for seed, snap, s in find_snapshots(a["states"], a["lo"], a["hi"],
+                                        a["seed"], dev):
+        stats = {}
+        label = f"seed {seed} snap {snap}"
+        bad = fuzz_state(s, a["n_moves"], cpu_reference, log, stats, label)
+        if bad:
+            raise AssertionError(f"[tooling] fuzz {label}: {bad} sequences "
+                                 f"differ")
+        sweeps.append(stats["sweep_ms"])
+        held = " and ".join("the C++ oracle" if h == "oracle" else "the CPU"
+                            for h in stats["held_by"])
+        log(f"[tooling] fuzz state {len(sweeps)}/{a['states']} ({label}): "
+            f"{stats['sequences']} two-step sequences held against {held}: "
+            f"OK, sweep {stats['sweep_ms']:.1f} ms on {smi}")
+        if time.perf_counter() - t0 > FUZZ_SECONDS:
+            break
+    seconds = time.perf_counter() - t0
+    n = a["n_moves"] ** 6
+    med = float(np.median(sweeps))
+    peak = ((torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+            if dev.type == "cuda" else None)
+    res = {"states": len(sweeps), "of": a["states"], "sequences": n,
+           "held_by": ["oracle", "cpu"] if oracle else ["cpu"],
+           "sweep_ms": sweeps, "sweep_ms_median": med,
+           "sequences_per_s": n / med * 1e3, "seconds": seconds,
+           "peak_mib_above_start": peak}
+    log(f"[tooling] fuzz: {len(sweeps)} of the script's {a['states']} states "
+        f"in {seconds:.1f} s, each {n} sequences x 2 exact steps in one call: "
+        f"{res['sequences_per_s']:.0f} sequences/s (median sweep "
+        f"{med:.1f} ms, host clock, synchronised), peak "
+        + (f"{peak:.1f} MiB above the start" if peak is not None else
+           "memory not measured") + f", on {smi}")
+    return res
+
+
+def tooling_demo(dev, smi: str) -> dict:
+    """One demo game per policy on the card, held each step against the
+    same game played on the CPU (the policies draw from a CPU generator,
+    so the moves and the states must agree); ms per step."""
+    import torch
+
+    from pomcpp_tpu_torch.play_demo import POLICIES, play_game, winner_line
+
+    out = {}
+    for policy in POLICIES:
+        steps = DEMO_SIMPLE_STEPS if policy == "simple" else DEMO_STEPS
+        card, held = [], []
+        _sync(dev)
+        t0 = time.perf_counter()
+        final, n = play_game(DEMO_SEED, steps, policy, device=dev,
+                             on_step=lambda t, s, mv: card.append((s, mv)))
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / n
+
+        def hold(t, s, mv):
+            what = f"[tooling] demo {policy} t={t}"
+            if not torch.equal(card[t][1].cpu(), mv):
+                raise AssertionError(f"{what}: the card's moves "
+                                     f"{card[t][1].tolist()} != the CPU's "
+                                     f"{mv.tolist()}")
+            expect_state_equal(what, card[t][0], s)
+            held.append(t)
+
+        plain, m = play_game(DEMO_SEED, steps, policy, device="cpu",
+                             on_step=hold)
+        assert m == n == len(held), (policy, m, n)
+        line = winner_line(final)
+        assert line == winner_line(plain)
+        out[policy] = {"steps": n, "ms_per_step": ms, "result": line}
+        log(f"[tooling] demo {policy}: {n} steps on {dev.type}, every move "
+            f"and state == the CPU's game; {ms:.2f} ms per step (host "
+            f"clock, one board); {line}; on {smi}")
+    return out
+
+
+def tooling_viewer(dev) -> dict:
+    """A replay recorded on the card and viewed from its npz, against the
+    same game recorded on the CPU."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from pomcpp_tpu_torch.replay_viewer import record, view
+
+    os.makedirs(TOOLING_OUT, exist_ok=True)
+    card_path = os.path.join(TOOLING_OUT, "card.npz")
+    cpu_path = os.path.join(TOOLING_OUT, "cpu.npz")
+    _, moves = record(card_path, DEMO_SEED, VIEW_STEPS, "random", dev)
+    record(cpu_path, DEMO_SEED, VIEW_STEPS, device="cpu", moves=moves)
+    with np.load(card_path) as a, np.load(cpu_path) as b:
+        for key in a.files:
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"[tooling] replay: card and CPU "
+                                     f"recordings differ in {key}")
+    texts = []
+    for path in (card_path, cpu_path):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            view(path, VIEW_FRAMES)
+        texts.append(buf.getvalue())
+    assert texts[0] == texts[1] and texts[0].count("--- step ") == 4
+    log(f"[tooling] replay viewer: {VIEW_STEPS} random-policy steps recorded "
+        f"on {dev.type}, == the CPU's recording of the same moves; frames "
+        f"{VIEW_FRAMES} from the npz:")
+    for line in texts[0].splitlines():
+        log(f"[tooling]   {line}")
+    return {"steps": VIEW_STEPS, "frames": VIEW_FRAMES}
+
+
+def tooling_debug(dev, smi: str) -> dict:
+    """``debug_divergence`` on one census batch on the card and on the CPU,
+    the same injected random moves: the same report."""
+    import torch
+
+    from pomcpp_tpu_torch.debug_divergence import debug_report
+
+    a = DEBUG_ARGS
+    gen = torch.Generator().manual_seed(DEBUG_MOVES_SEED)
+    moves = torch.randint(0, 6, (a["steps"], a["batch"], 4), generator=gen,
+                          dtype=torch.int32)
+    _sync(dev)
+    t0 = time.perf_counter()
+    card = debug_report(**a, device=dev, moves=moves, log=lambda m: None)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    plain = debug_report(**a, device="cpu", moves=moves, log=lambda m: None)
+    if card != plain:
+        raise AssertionError("[tooling] debug_divergence: the card's report "
+                             "differs from the CPU's")
+    events = [line for line in card if line.startswith("t=")]
+    log(f"[tooling] debug_divergence: batch {a['batch_index']} of "
+        f"{a['batch']} boards, random moves: report == the CPU's, "
+        f"{len(events)} divergent board-steps, {seconds:.1f} s on "
+        f"{dev.type}, on {smi}")
+    for line in card[:12]:
+        log(f"[tooling]   {line}")
+    return {"events": len(events), "seconds": seconds}
+
+
+def phase_tooling(dev) -> dict:
+    """The exact engine's tooling on the card: the state fuzzer at its
+    script's size, the demo, the replay viewer and the divergence debugger,
+    each held against the CPU.  No kernel of the port is on this path: the
+    phase fails if one launches."""
+    from pomcpp_tpu_torch import _ext
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line() if dev.type == "cuda" else "the CPU"
+    before = dict(_ext.LAUNCHES)
+    res = {"fuzz": tooling_fuzz(dev, smi), "demo": tooling_demo(dev, smi),
+           "viewer": tooling_viewer(dev), "debug": tooling_debug(dev, smi)}
+    res["launches"] = launched_since(before)
+    if res["launches"]:
+        raise AssertionError(f"[tooling] a kernel of the port launched on "
+                             f"the exact engine's path: {res['launches']}")
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"[tooling] {json.dumps(res)}")
+    log(f"[tooling] phase took {res['phase_s']:.1f} s")
+    return res
+
+
 def bound_ms(board_steps: int, bytes_moved: int, rates) -> tuple[float, str]:
     """Least time: bytes over the memory rate vs one 32-bit instruction per
     state value per board-step (7 planes x 121 cells) over the issue rate
@@ -3453,7 +3689,8 @@ def bound_ms(board_steps: int, bytes_moved: int, rates) -> tuple[float, str]:
 HELD_PHASES = {"step": phase_step, "fsm": phase_fsm, "chunk": phase_chunk,
                "env": phase_env_held, "probes": phase_probes_held,
                "learn": phase_learn, "search": phase_search,
-               "dist": phase_dist, "exact": phase_exact}
+               "dist": phase_dist, "exact": phase_exact,
+               "tooling": phase_tooling}
 
 
 def main() -> int:
@@ -3520,6 +3757,7 @@ def main() -> int:
     search = phase_search(dev)
     dist = phase_dist(dev)
     phase_exact(dev)
+    phase_tooling(dev)
     torch.cuda.synchronize()
 
     paths = {"main": main_res["launches"], "env": env_res["launches"],

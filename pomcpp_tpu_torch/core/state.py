@@ -169,6 +169,12 @@ def cell_index(x, y):
     return x + BOARD_SIZE * y
 
 
+def board_get(state, x, y) -> torch.Tensor:
+    """The cell class at (x, y) on every board: ``[B]``; ``x`` and ``y``
+    are ints or ``[B]`` tensors inside the board."""
+    return read_at(state.board, cell_index(x, y))
+
+
 def index_col(i) -> torch.Tensor:
     """A ``[B]`` index as the long ``[B, 1]`` column that ``read_at`` and
     ``write_at`` gather and scatter with (made once where an index serves

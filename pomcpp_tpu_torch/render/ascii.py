@@ -8,8 +8,10 @@ queues.  It reads one board of either encoding -- a queue-encoded ``State``
 (``engine.cellular.board_of``) -- from tensors on any device or numpy
 arrays, fetching each field to the host once.  Never on the compute path.
 
-``render_rmap``, ``render_path`` and ``render_dependency*`` draw the exact
-engine's strategy maps (``strategy.rmap``) and are not ported yet.
+``render_rmap`` and ``render_path`` draw ONE board's reachability map
+(``strategy.rmap.fill_rmap``: take a board's row of each field), and
+``render_dependency`` / ``render_dependency_chain`` one board's movement
+dependency and root arrays (``engine.util.resolve_dependencies``).
 """
 
 from __future__ import annotations
@@ -123,3 +125,64 @@ def print_state(state, color: bool = True, clear: bool = False) -> None:
     if clear:
         print("\033c", end="")
     print(render_state(state, color))
+
+
+def render_rmap(rmap, color: bool = True) -> str:
+    """One board's RMap distances (reference PrintMap,
+    strategy.cpp:251-265)."""
+    dist = _np(rmap.dist).reshape(BOARD_SIZE, BOARD_SIZE)
+    return "\n".join(" ".join(f"{int(dist[y, x]):2d}"
+                              for x in range(BOARD_SIZE))
+                     for y in range(BOARD_SIZE))
+
+
+def render_path(rmap, target: int, color: bool = True) -> str:
+    """Distances with the predecessor path to ``target`` highlighted
+    (reference PrintPath, strategy.cpp:268-294): the walk stops at the
+    source or after 121 cells."""
+    dist = _np(rmap.dist).reshape(BOARD_SIZE, BOARD_SIZE)
+    pred = _np(rmap.pred)
+    src = int(_np(rmap.source))
+    path = set()
+    cur = int(target)
+    for _ in range(BOARD_SIZE * BOARD_SIZE):
+        if cur == src:
+            break
+        path.add(cur)
+        cur = int(pred[cur])
+    red, reset = ("\033[0;31m", _RESET) if color else ("", "")
+    lines = []
+    for y in range(BOARD_SIZE):
+        row = []
+        for x in range(BOARD_SIZE):
+            d = f"{int(dist[y, x]):2d}"
+            row.append(f"{red}{d}{reset}" if x + BOARD_SIZE * y in path else d)
+        lines.append(" ".join(row))
+    return "\n".join(lines)
+
+
+def render_dependency(dependency) -> str:
+    """One board's movement dependency array, one ``[i <- j]`` line per
+    agent (reference PrintDependency, step_utility.cpp:339-354)."""
+    dep = _np(dependency)
+    return "\n".join(f"[{i} <- ]" if int(d) == -1 else f"[{i} <- {int(d)}]"
+                     for i, d in enumerate(dep))
+
+
+def render_dependency_chain(dependency, chain) -> str:
+    """Each of one board's movement chains walked root to tail,
+    ``r <- a <- b`` a line (reference PrintDependencyChain,
+    step_utility.cpp:356-371); ``chain`` is the board's roots row."""
+    dep = _np(dependency)
+    lines = []
+    for c in _np(chain):
+        c = int(c)
+        if c == -1:
+            continue
+        parts = [str(c)]
+        k = int(dep[c])
+        while k != -1:
+            parts.append(str(k))
+            k = int(dep[k])
+        lines.append(" <- ".join(parts))
+    return "\n".join(lines)

@@ -1,1 +1,2 @@
-"""Conformance helpers: the divergence classifier of the census."""
+"""Conformance helpers: the divergence classifier of the census and the
+C++ oracle's host side."""

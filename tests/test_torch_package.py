@@ -150,6 +150,60 @@ def test_exact_engine_entry_points_need_cuda(monkeypatch):
         env_reset(1, 2, engine="queue", device="cpu")
 
 
+def test_tooling_entry_points_need_cuda(monkeypatch, tmp_path):
+    """The state fuzzer, the demo, the replay viewer's recorder and the
+    divergence debugger run on the card unless the caller names the CPU;
+    the fuzzer's command line then asserts that the oracle builds."""
+    from pomcpp_tpu_torch import (
+        debug_divergence,
+        play_demo,
+        replay_viewer,
+        state_fuzz,
+    )
+    from pomcpp_tpu_torch.testing import oracle
+
+    path = str(tmp_path / "game.npz")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: state_fuzz.fuzz_one(120, 35, 5),
+        lambda: state_fuzz.snapshots([120], [35]),
+        lambda: state_fuzz.main(["--states", "1"]),
+        lambda: play_demo.play_game(0x1337, 2, "random"),
+        lambda: play_demo.main(["--steps", "2", "--no-render"]),
+        lambda: replay_viewer.record(path, steps=2),
+        lambda: replay_viewer.main(["--record", path, "--steps", "2"]),
+        lambda: debug_divergence.debug_report(0, 2, 2),
+        lambda: debug_divergence.main(["--batch", "2", "--steps", "2"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    if oracle.ensure_oracle() is None:
+        with pytest.raises(AssertionError, match="oracle"):
+            state_fuzz.main(["--states", "1", "--device", "cpu"])
+        with pytest.raises(RuntimeError, match="no oracle"):
+            state_fuzz.fuzz_one(120, 35, 5, "cpu")
+
+
+def test_tooling_mains_run_on_the_cpu(capsys, tmp_path):
+    """The demo, the viewer and the debugger on the CPU from their command
+    lines: the winner line, the recorded and viewed frames, the report."""
+    from pomcpp_tpu_torch import debug_divergence, play_demo, replay_viewer
+
+    assert play_demo.main(["--policy", "random", "--no-render",
+                           "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1].startswith(("Finished!", "Draw!"))
+    path = str(tmp_path / "game.npz")
+    assert replay_viewer.main(["--record", path, "--steps", "6", "--policy",
+                               "harmless", "--device", "cpu"]) == 0
+    assert replay_viewer.main(["--view", path, "--frames", "4:9"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("--- step ") == 3 and "(final state)" in out
+    assert debug_divergence.main(["--batch", "8", "--steps", "5",
+                                  "--device", "cpu"]) == 0
+
+
 def test_census_main_runs_on_the_cpu(capsys):
     from pomcpp_tpu_torch import divergence_census
 
@@ -203,11 +257,11 @@ def test_search_arena_and_distill_entry_points_need_cuda(monkeypatch):
 
 
 def test_chip_smoke_knows_its_phases():
-    """``--only=`` takes every held phase, the search, dist and exact phases
-    included."""
+    """``--only=`` takes every held phase, the search, dist, exact and
+    tooling phases included."""
     assert set(chip_smoke.HELD_PHASES) == {"step", "fsm", "chunk", "env",
                                            "probes", "learn", "search",
-                                           "dist", "exact"}
+                                           "dist", "exact", "tooling"}
 
 
 @pytest.mark.parametrize("make", ["empty_cell_state", "simple_agent_init",
