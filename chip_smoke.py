@@ -214,10 +214,12 @@ Phases (any failure exits non-zero before the result line):
 ``--profile`` builds, runs the env path at full width and then a
 ``torch.profiler`` pass over 32 fused and 32 mixed-control env steps, prints
 the kernels and copies per step, the device idle share and the device time
-by kernel; then it builds the chunk kernel with its phase clocks
-(``-DPOMCPP_PHASE_CLOCKS``), runs two chunks of each policy at the main
-path's size, holds their result to the plain build's and prints the share of
-each phase of a step in the summed warp cycles.  It exits with code 4 and
+by kernel; then it turns the port's tracing on and runs 16 chunks of each
+policy at the main path's size, of which every 8th launches the chunk
+kernel's clocked instance (``pomcpp_tpu_torch.trace``), holds the result to
+16 chunks run with tracing off, and prints the share of each phase of a
+step in the sampled calls' summed warp cycles and the sampled calls' device
+time beside the others'.  It exits with code 4 and
 no result line.
 ``--only=probes,env`` (any of step, fsm, chunk, env, probes, learn, search,
 dist, exact, tooling) builds, runs just those held comparisons (for ``learn``,
@@ -232,6 +234,7 @@ exits non-zero and prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -448,6 +451,10 @@ class Timer:
 
 KERNEL_ENTRIES = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
                   ("rollout_chunk_kernelILb0", "rollout_chunk_kernel"),
+                  ("rollout_chunk_clocked_kernelILb1",
+                   "rollout_chunk_clocked_simple_kernel"),
+                  ("rollout_chunk_clocked_kernelILb0",
+                   "rollout_chunk_clocked_kernel"),
                   ("fsm_act_kernel", "fsm_act_kernel"),
                   ("fused_step_kernelILb1", "fused_env_step_kernel"),
                   ("fused_step_kernelILb0", "fused_step_kernel"),
@@ -469,7 +476,9 @@ KERNEL_ENTRIES = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
 # pomcpp_ctas_per_sm.
 WARP_LAYOUT_KERNELS = ("rollout_chunk_kernel", "rollout_chunk_simple_kernel",
                        "fused_step_kernel", "fused_env_step_kernel",
-                       "env_merge_kernel", "fsm_act_kernel")
+                       "env_merge_kernel", "fsm_act_kernel",
+                       "rollout_chunk_clocked_kernel",
+                       "rollout_chunk_clocked_simple_kernel")
 
 
 def kernel_resources(build_log: str) -> dict:
@@ -1388,18 +1397,13 @@ def profile_env(es, fsm) -> None:
                 f"x{e.count / 32:6.2f}/step  {e.key[:100]}")
 
 
-# wl::Phase of csrc/step_warp.cuh: cycle sums, then event counts.
-PHASES = ("draw", "danger", "bfs", "flee", "decide", "move", "bombs", "blast",
-          "rest", "n_bfs_rounds", "n_bomb_steps", "n_move_passes", "n_blasts",
-          "n_steps")
-PHASE_CLOCKS = ("-DPOMCPP_PHASE_CLOCKS=1",)
+def phase_shares(rows) -> dict:
+    """From sampled calls' phase totals (``trace.PhaseRow``): each phase's
+    share of the summed warp cycles, the warp cycles and the event counts
+    per step."""
+    from pomcpp_tpu_torch.trace import PHASES
 
-
-def phase_shares(totals) -> dict:
-    """From the phase clocks' totals (``PHASES`` order): each phase's share
-    of the summed warp cycles, the warp cycles and the event counts per
-    step."""
-    got = dict(zip(PHASES, totals))
+    got = {k: sum(r.totals[k] for r in rows) for k in PHASES}
     cycles = sum(v for k, v in got.items() if not k.startswith("n_"))
     steps = max(got["n_steps"], 1)
     out = {k: round(v / max(cycles, 1), 4) for k, v in got.items()
@@ -1410,52 +1414,54 @@ def phase_shares(totals) -> dict:
     return out
 
 
+PROFILE_CHUNKS = 16
+
+
 def profile_chunk_phases(smi: str) -> None:
-    """Where a chunk's warp cycles go (``--profile``): two chunks of each
-    policy at the main path's size through the build with the phase clocks,
-    held to the plain build's result.  The clocks cost registers and time,
-    so the chunk times printed here are not the kernel's."""
-    import ctypes
-
-    import torch
-
-    from pomcpp_tpu_torch import _ext
+    """Where a chunk's warp cycles go (``--profile``): ``PROFILE_CHUNKS``
+    chunks of each policy at the main path's size with the port's tracing
+    on, so that every ``trace.SAMPLE_EVERY``-th launches the clocked
+    instance, held to the same chunks with tracing off.  The clocks cost
+    registers and time: the sampled calls' device times are printed beside
+    the others'."""
+    from pomcpp_tpu_torch import _ext, trace
     from pomcpp_tpu_torch.core.board_gen import random_cell_state
     from pomcpp_tpu_torch.engine import fused_step as fs
     from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
 
-    lib = _ext.lib(PHASE_CLOCKS)
-    res = kernel_resources(_ext.build_log(("kernels",), PHASE_CLOCKS))
-    stream = torch.cuda.current_stream().cuda_stream
-    totals = (ctypes.c_ulonglong * len(PHASES))()
+    res = kernel_resources(_ext.build_log(("kernels",)))
     cs0 = random_cell_state(BOARDS, seed=0)
     for policy in ("harmless", "random", "simple"):
-        clocked = plain = (cs0, simple_fsm_state_init(BOARDS)
-                           if policy == "simple" else None)
-        if lib.pomcpp_phase_totals(totals) != len(PHASES):     # clears them
-            raise RuntimeError("the phase clocks' slots are not PHASES")
-        ms = []
-        for chunk in range(2):
-            with Timer() as tm:
-                out = fs._rollout_chunk_launch(
-                    lib, stream, clocked[0], 100 + chunk, CHUNK,
-                    fs.POLICY_MOVES[policy], None, False, True, None,
-                    clocked[1], (), False)
-            ms.append(tm.ms())
-            clocked = out if policy == "simple" else (out, None)
-            out = fs.rollout_chunk(plain[0], 100 + chunk, CHUNK, policy,
-                                   fsm_state=plain[1])
-            plain = out if policy == "simple" else (out, None)
-        lib.pomcpp_phase_totals(totals)
-        expect_equal(f"phase clocks, {policy}", clocked[0], plain[0])
+        start = (cs0, simple_fsm_state_init(BOARDS)
+                 if policy == "simple" else None)
+        ends, ms = [], {True: [], False: []}
+        trace.clear()
+        for traced in (True, False):
+            if traced:
+                trace.enable()
+            state = start
+            for chunk in range(PROFILE_CHUNKS):
+                with Timer() as tm:
+                    out = fs.rollout_chunk(state[0], 100 + chunk, CHUNK, policy,
+                                           fsm_state=state[1])
+                sampled = traced and (chunk + 1) % trace.SAMPLE_EVERY == 0
+                ms[sampled].append(tm.ms())
+                state = out if policy == "simple" else (out, None)
+            trace.disable()
+            ends.append(state)
+        rows = trace.phase_rows()
+        if len(rows) != PROFILE_CHUNKS // trace.SAMPLE_EVERY:
+            raise AssertionError(f"{policy}: {len(rows)} sampled calls")
+        expect_equal(f"phase clocks, {policy}", ends[0][0], ends[1][0])
         if policy == "simple":
-            expect_fsm_equal("phase clocks, FSM", clocked[1], plain[1])
-        name = ("rollout_chunk_simple_kernel" if policy == "simple"
-                else "rollout_chunk_kernel")
+            expect_fsm_equal("phase clocks, FSM", ends[0][1], ends[1][1])
+        name = ("rollout_chunk_clocked_simple_kernel" if policy == "simple"
+                else "rollout_chunk_clocked_kernel")
         log(f"[profile] {policy} chunk with phase clocks: "
-            f"{json.dumps(phase_shares(totals))}; clocked chunk ms "
-            f"{[round(t, 3) for t in ms]}, {json.dumps(res.get(name, {}))}, "
-            f"== the plain build, on {smi}")
+            f"{json.dumps(phase_shares(rows))}; sampled chunk ms "
+            f"{[round(t, 3) for t in ms[True]]}, the others' median "
+            f"{statistics.median(ms[False]):.3f}, {json.dumps(res.get(name, {}))}, "
+            f"== tracing off, on {smi}")
 
 
 def probe_outputs_equal(what: str, a, b) -> int:
@@ -3282,8 +3288,8 @@ def exact_step_profile(dev) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from pomcpp_tpu_torch import trace
     from pomcpp_tpu_torch.core.state import map_state
-    from pomcpp_tpu_torch.engine import flames
     from pomcpp_tpu_torch.engine.step import step
 
     b = EXACT_TIMED_BOARDS
@@ -3297,13 +3303,13 @@ def exact_step_profile(dev) -> dict:
     for _ in range(EXACT_WARM_STEPS):
         s = step(s, moves())
     torch.cuda.synchronize()
-    reads0 = flames.HOST_READS[0]
+    reads0 = trace.COUNTERS["host_reads"]
     t0 = time.perf_counter()
     for _ in range(EXACT_TIMED_STEPS):
         s = step(s, moves())
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / EXACT_TIMED_STEPS
-    reads = (flames.HOST_READS[0] - reads0) / EXACT_TIMED_STEPS
+    reads = (trace.COUNTERS["host_reads"] - reads0) / EXACT_TIMED_STEPS
     mv = moves()
     ops = device_ops(lambda: step(s, mv))
     prof_steps = 4

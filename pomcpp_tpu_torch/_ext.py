@@ -11,8 +11,10 @@ library that is loaded even when an earlier run built it.  Nothing here
 runs at import: the CPU-only install (no ``nvcc``, no card) imports the
 package freely.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run resets
-it with ``reset_launches()`` to show which kernels a path went through.
+``LAUNCHES`` counts, per kernel, the launches its wrapper made (the dict is
+``trace.LAUNCHES``); a run resets it with ``reset_launches()`` to show which
+kernels a path went through.  The chunk kernel's clocked instance, which
+``trace`` samples, counts under its own names.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from . import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # One shared library per source file, so that they build side by side.
@@ -38,12 +42,14 @@ NVCC_FLAGS = (
 )
 KERNELS = ("fused_step_kernel", "fused_env_step_kernel", "env_merge_kernel",
            "rollout_chunk_kernel", "rollout_chunk_simple_kernel",
+           "rollout_chunk_clocked_kernel", "rollout_chunk_clocked_simple_kernel",
            "fsm_act_kernel", "probe_elem_kernel", "probe_shift_kernel",
            "probe_reduce_kernel", "probe_dot_kernel", "probe_dot_tc_kernel")
 
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = trace.LAUNCHES
+LAUNCHES.update(dict.fromkeys(KERNELS, 0))
 
-_libs: dict = {}    # (library, defines) -> loaded handle
+_libs: dict = {}    # library -> loaded handle
 
 
 def reset_launches() -> None:
@@ -61,27 +67,25 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str, defines=()) -> Path:
+def _target(name: str) -> Path:
     source, headers = LIBRARIES[name]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (source,) + headers:
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"libpomcpp_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=tuple(LIBRARIES), defines=()) -> dict:
+def build(names=tuple(LIBRARIES)) -> dict:
     """Compile the named libraries that have no file for their exact
-    sources yet, all ``nvcc`` runs started together; returns their paths.
-    ``defines`` is for ``-DPOMCPP_PHASE_CLOCKS=1``, the one build option of
-    ``fused_step.cu``: such a build is a library of its own."""
-    outs = {name: _target(name, defines) for name in names}
+    sources yet, all ``nvcc`` runs started together; returns their paths."""
+    outs = {name: _target(name) for name in names}
     procs = []
     for name, out in outs.items():
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / LIBRARIES[name][0])]
         procs.append((name, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -98,20 +102,19 @@ def build(names=tuple(LIBRARIES), defines=()) -> dict:
     return outs
 
 
-def build_log(names=tuple(LIBRARIES), defines=()) -> str:
+def build_log(names=tuple(LIBRARIES)) -> str:
     """What ``nvcc`` printed when it built the named libraries' current
     files, whichever run built them ("" for one not built yet)."""
-    logs = (_target(name, defines).with_suffix(".log") for name in names)
+    logs = (_target(name).with_suffix(".log") for name in names)
     return "".join(p.read_text() for p in logs if p.exists())
 
 
-def _load(name: str, defines=()) -> tuple:
+def _load(name: str) -> tuple:
     """(handle, loaded just now) of a library, built if need be."""
-    key = (name, tuple(defines))
-    fresh = key not in _libs
+    fresh = name not in _libs
     if fresh:
-        _libs[key] = ctypes.CDLL(str(build((name,), defines)[name]))
-    return _libs[key], fresh
+        _libs[name] = ctypes.CDLL(str(build((name,))[name]))
+    return _libs[name], fresh
 
 
 class StateView(ctypes.Structure):
@@ -151,12 +154,12 @@ def bind_kernels(handle: ctypes.CDLL) -> ctypes.CDLL:
     handle.pomcpp_env_merge.argtypes = [g, e, e, g, i, i, i, i, p]
     handle.pomcpp_env_merge.restype = i
     handle.pomcpp_rollout_chunk.argtypes = [
-        StateView, StateView, i, i, i, u, u, p, p, p, i, p, p, p,
+        StateView, StateView, i, i, i, u, u, p, p, p, i, p, p, p, p,
     ]
     handle.pomcpp_rollout_chunk.restype = i
     handle.pomcpp_rollout_chunk_simple.argtypes = [
         StateView, StateView, FsmView, FsmView, i, i, u, u, p, i, i, p, p,
-        i, p, p, p,
+        i, p, p, p, p,
     ]
     handle.pomcpp_rollout_chunk_simple.restype = i
     handle.pomcpp_fsm_act.argtypes = [g, FsmView, FsmView, p, p, i, p]
@@ -167,18 +170,14 @@ def bind_kernels(handle: ctypes.CDLL) -> ctypes.CDLL:
     handle.pomcpp_chunk_grid.restype = i
     handle.pomcpp_ctas_per_sm.argtypes = [i]
     handle.pomcpp_ctas_per_sm.restype = i
-    handle.pomcpp_phase_totals.argtypes = [p]
-    handle.pomcpp_phase_totals.restype = i
     handle.pomcpp_error_string.argtypes = [i]
     handle.pomcpp_error_string.restype = ctypes.c_char_p
     return handle
 
 
-def lib(defines=()) -> ctypes.CDLL:
-    """The loaded engine kernels (``fused_step.cu``), built on first call.
-    The port's entry points load the plain build; ``defines`` names the
-    build with the phase clocks (see ``build``)."""
-    handle, fresh = _load("kernels", defines)
+def lib() -> ctypes.CDLL:
+    """The loaded engine kernels (``fused_step.cu``), built on first call."""
+    handle, fresh = _load("kernels")
     return bind_kernels(handle) if fresh else handle
 
 

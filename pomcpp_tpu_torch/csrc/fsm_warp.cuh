@@ -343,8 +343,9 @@ __device__ __forceinline__ bool bfs_round(Pairs& cur, const Pairs& send, const B
 // One act.  Every lane calls it with the same `A` and `rnd` (each agent's
 // rand); on return every lane holds the four FSM moves in `mv`.  `fs` is the
 // warp's own slice.
+template <class Clock>
 __device__ void fsm_act(const Cells& s, const Agents& A, const int rnd[NA], FsmSlice& fs,
-                        int mv[NA], const Geo& g, PhaseClock& pc) {
+                        int mv[NA], const Geo& g, Clock& pc) {
   // ---- 1. Danger map ---------------------------------------------------------
   int danger[CPL];
   {

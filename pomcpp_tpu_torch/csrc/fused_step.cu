@@ -37,10 +37,13 @@
 // is tens of microseconds, far below the time the step body takes.  The
 // kernel is bound by the integer pipe (compares, selects and
 // logic, 64 lanes a cycle per SM) and, for the simple policy, by the chain
-// of dependent BFS exchanges; `python3 chip_smoke.py --profile` builds the
-// library with -DPOMCPP_PHASE_CLOCKS (its one build option) and prints where
-// the cycles go.  A single step (fused_step_kernel) moves the same bytes for
-// one step of work, so it sits nearer its byte bound.
+// of dependent BFS exchanges.  rollout_chunk_clocked_kernel is the same body
+// with the phase clocks (step_warp.cuh): while tracing is on, the port
+// launches it for one chunk call in 8 and it sums where that call's cycles
+// go into a row of its own (pomcpp_tpu_torch/trace.py); the plain instance
+// compiles as if the clocks did not exist.  A single step
+// (fused_step_kernel) moves the same bytes for one step of work, so it sits
+// nearer its byte bound.
 //
 // The PRNG is Philox4x32-10 (Salmon et al., SC'11), counter
 // (board, chunk-local step, stream, word), key (seed lo, seed hi); the
@@ -71,11 +74,6 @@ namespace pomcpp {
 constexpr int CHUNK_WARPS = 4;
 constexpr int CHUNK_MIN_CTAS = 4;
 constexpr int chunk_grid(int batch) { return (batch + CHUNK_WARPS - 1) / CHUNK_WARPS; }
-
-#ifdef POMCPP_PHASE_CLOCKS
-// Sums over every warp of every chunk launch since the last read.
-__device__ unsigned long long phase_totals[wl::PHASE_SLOTS];
-#endif
 
 struct StateView {
   int32_t* f[14];  // board, hidden, ftimer, btimer, bstr, bdir, bown: [B, 121]
@@ -121,7 +119,7 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) fused_step_k
   int mv[NA];
 #pragma unroll
   for (int i = 0; i < NA; ++i) mv[i] = moves[b * NA + i];
-  wl::PhaseClock pc;
+  wl::NoClock pc;
   wl::step_board(s, A, mv, ws_all[warp], g, pc);
   const int alive = wl::alive_of(A), timestep = in.timestep[b] + (kEnv ? 1 : 0);
   wl::store_game(out, b, g, s, A, alive, timestep);
@@ -218,18 +216,21 @@ __device__ __forceinline__ void store_board(const StateView& out, int b, const w
   }
 }
 
-// The chunk kernel in the warp layout (step_warp.cuh, fsm_warp.cuh): warp w
-// of CTA k owns board k * CHUNK_WARPS + w for the whole chunk, and no warp
-// ever waits for another, so a warp past the end of the batch just returns.
+// The chunk kernels' body in the warp layout (step_warp.cuh, fsm_warp.cuh):
+// warp w of CTA k owns board k * CHUNK_WARPS + w for the whole chunk, and no
+// warp ever waits for another, so a warp past the end of the batch just
+// returns.
 //
 // kSimple: `n_moves` is 5, the draws (or moves[t] unless prng_rand) are the
 // FSM's rands, and lanes set in inject_mask take their move from moves[t].
-template <bool kSimple>
-__global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) rollout_chunk_kernel(
+// Clock: wl::NoClock, or wl::PhaseClock, whose sums go to `totals`.
+template <bool kSimple, class Clock>
+__device__ __forceinline__ void rollout_chunk_board(
     StateView in, StateView out, FsmView fin, FsmView fout, int batch, int steps, int n_moves,
     uint32_t k0, uint32_t k1, const int32_t* __restrict__ moves, int inject_mask, int prng_rand,
     const int32_t* __restrict__ reset_board, const int32_t* __restrict__ reset_hidden,
-    int auto_reset, int32_t* __restrict__ rec_moves, int32_t* __restrict__ rec_done) {
+    int auto_reset, int32_t* __restrict__ rec_moves, int32_t* __restrict__ rec_done,
+    unsigned long long* __restrict__ totals) {
   __shared__ wl::WarpShared ws_all[CHUNK_WARPS];
   __shared__ std::conditional_t<kSimple, wl::FsmSlice, char> fs_all[CHUNK_WARPS];
   const int warp = threadIdx.x >> 5;
@@ -238,7 +239,7 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) rollout_chun
   wl::WarpShared& ws = ws_all[warp];
   auto& fs = fs_all[warp];
   const wl::Geo g = wl::make_geo();
-  wl::PhaseClock pc;
+  Clock pc;
   pc.start();
   wl::Cells s;
   Agents A;
@@ -359,12 +360,56 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) rollout_chun
   }
   store_board(out, b, g, s, A);
   if constexpr (kSimple) wl::fsm_store(fout, b, g.lane, fs);
-#ifdef POMCPP_PHASE_CLOCKS
-  if (g.lane == 0) {
-#pragma unroll
-    for (int k = 0; k < wl::PHASE_SLOTS; ++k) atomicAdd(&phase_totals[k], (unsigned long long)pc.acc[k]);
+  pc.flush(totals, g.lane);
+}
+
+// The chunk kernel: the body without clocks.
+template <bool kSimple>
+__global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) rollout_chunk_kernel(
+    StateView in, StateView out, FsmView fin, FsmView fout, int batch, int steps, int n_moves,
+    uint32_t k0, uint32_t k1, const int32_t* __restrict__ moves, int inject_mask, int prng_rand,
+    const int32_t* __restrict__ reset_board, const int32_t* __restrict__ reset_hidden,
+    int auto_reset, int32_t* __restrict__ rec_moves, int32_t* __restrict__ rec_done) {
+  rollout_chunk_board<kSimple, wl::NoClock>(in, out, fin, fout, batch, steps, n_moves, k0, k1,
+                                            moves, inject_mask, prng_rand, reset_board,
+                                            reset_hidden, auto_reset, rec_moves, rec_done,
+                                            nullptr);
+}
+
+// The same chunk with the phase clocks, for a sampled call: the call's
+// warps add their sums into its row `totals` (PHASE_SLOTS values, zeroed
+// by the caller).  Its own name keeps it apart from rollout_chunk_kernel in
+// a device trace.
+template <bool kSimple>
+__global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) rollout_chunk_clocked_kernel(
+    StateView in, StateView out, FsmView fin, FsmView fout, int batch, int steps, int n_moves,
+    uint32_t k0, uint32_t k1, const int32_t* __restrict__ moves, int inject_mask, int prng_rand,
+    const int32_t* __restrict__ reset_board, const int32_t* __restrict__ reset_hidden,
+    int auto_reset, int32_t* __restrict__ rec_moves, int32_t* __restrict__ rec_done,
+    unsigned long long* __restrict__ totals) {
+  rollout_chunk_board<kSimple, wl::PhaseClock>(in, out, fin, fout, batch, steps, n_moves, k0,
+                                               k1, moves, inject_mask, prng_rand, reset_board,
+                                               reset_hidden, auto_reset, rec_moves, rec_done,
+                                               totals);
+}
+
+// A chunk launch: the clocked instance when `totals` names a row.
+template <bool kSimple>
+int launch_chunk(StateView in, StateView out, FsmView fin, FsmView fout, int batch, int steps,
+                 int n_moves, uint32_t k0, uint32_t k1, const int32_t* moves, int inject_mask,
+                 int prng_rand, const int32_t* reset_board, const int32_t* reset_hidden,
+                 int auto_reset, int32_t* rec_moves, int32_t* rec_done,
+                 unsigned long long* totals, void* stream) {
+  if (totals == nullptr) {
+    POMCPP_LAUNCH(rollout_chunk_kernel<kSimple>, chunk_grid(batch), CHUNK_WARPS * 32, stream, in,
+                  out, fin, fout, batch, steps, n_moves, k0, k1, moves, inject_mask, prng_rand,
+                  reset_board, reset_hidden, auto_reset, rec_moves, rec_done);
+  } else {
+    POMCPP_LAUNCH(rollout_chunk_clocked_kernel<kSimple>, chunk_grid(batch), CHUNK_WARPS * 32,
+                  stream, in, out, fin, fout, batch, steps, n_moves, k0, k1, moves, inject_mask,
+                  prng_rand, reset_board, reset_hidden, auto_reset, rec_moves, rec_done, totals);
   }
-#endif
+  return (int)cudaGetLastError();
 }
 
 // One SimpleAgent act for board k * CHUNK_WARPS + w in warp w of CTA k: the
@@ -388,7 +433,7 @@ __global__ void __launch_bounds__(CHUNK_WARPS * 32, CHUNK_MIN_CTAS) fsm_act_kern
   int rnd[NA], mv[NA];
 #pragma unroll
   for (int i = 0; i < NA; ++i) rnd[i] = rands[b * NA + i];
-  wl::PhaseClock pc;
+  wl::NoClock pc;
   wl::fsm_act(s, A, rnd, fs, mv, g, pc);
   if (g.lane < NA) moves[b * NA + g.lane] = pick4(mv, g.lane);
   wl::fsm_store(fout, b, g.lane, fs);
@@ -431,16 +476,18 @@ int pomcpp_env_merge(pomcpp::GameView game, pomcpp::EnvView ein, pomcpp::EnvView
   return (int)cudaGetLastError();
 }
 
+// `phase_totals`: null, or the zeroed row of this call's phase sums, which
+// launches the clocked instance.
 int pomcpp_rollout_chunk(pomcpp::StateView in, pomcpp::StateView out, int batch, int steps,
                          int n_moves, uint32_t k0, uint32_t k1, const int32_t* moves,
                          const int32_t* reset_board, const int32_t* reset_hidden, int auto_reset,
-                         int32_t* rec_moves, int32_t* rec_done, void* stream) {
+                         int32_t* rec_moves, int32_t* rec_done, unsigned long long* phase_totals,
+                         void* stream) {
   if (batch <= 0 || steps < 0 || n_moves <= 0) return (int)cudaErrorInvalidValue;
   const pomcpp::FsmView none{};
-  POMCPP_LAUNCH(pomcpp::rollout_chunk_kernel<false>, pomcpp::chunk_grid(batch),
-                pomcpp::CHUNK_WARPS * 32, stream, in, out, none, none, batch, steps, n_moves, k0,
-                k1, moves, 0, 0, reset_board, reset_hidden, auto_reset, rec_moves, rec_done);
-  return (int)cudaGetLastError();
+  return pomcpp::launch_chunk<false>(in, out, none, none, batch, steps, n_moves, k0, k1, moves, 0,
+                                     0, reset_board, reset_hidden, auto_reset, rec_moves,
+                                     rec_done, phase_totals, stream);
 }
 
 int pomcpp_rollout_chunk_simple(pomcpp::StateView in, pomcpp::StateView out, pomcpp::FsmView fin,
@@ -448,14 +495,13 @@ int pomcpp_rollout_chunk_simple(pomcpp::StateView in, pomcpp::StateView out, pom
                                 uint32_t k1, const int32_t* moves, int inject_mask,
                                 int prng_rand, const int32_t* reset_board,
                                 const int32_t* reset_hidden, int auto_reset, int32_t* rec_moves,
-                                int32_t* rec_done, void* stream) {
+                                int32_t* rec_done, unsigned long long* phase_totals,
+                                void* stream) {
   if (batch <= 0 || steps < 0 || (inject_mask != 0 && moves == nullptr))
     return (int)cudaErrorInvalidValue;
-  POMCPP_LAUNCH(pomcpp::rollout_chunk_kernel<true>, pomcpp::chunk_grid(batch),
-                pomcpp::CHUNK_WARPS * 32, stream, in, out, fin, fout, batch, steps, 5, k0, k1,
-                moves, inject_mask, prng_rand, reset_board, reset_hidden, auto_reset, rec_moves,
-                rec_done);
-  return (int)cudaGetLastError();
+  return pomcpp::launch_chunk<true>(in, out, fin, fout, batch, steps, 5, k0, k1, moves,
+                                    inject_mask, prng_rand, reset_board, reset_hidden, auto_reset,
+                                    rec_moves, rec_done, phase_totals, stream);
 }
 
 int pomcpp_fsm_act(pomcpp::GameView in, pomcpp::FsmView fin, pomcpp::FsmView fout,
@@ -470,7 +516,8 @@ int pomcpp_fsm_act(pomcpp::GameView in, pomcpp::FsmView fin, pomcpp::FsmView fou
 // and the CTAs of one kernel that the runtime keeps resident on one SM (0 or
 // less: none fits, or the query failed).  `kernel`: 0
 // rollout_chunk_kernel<false>, 1 <true>, 2 fused_step_kernel<false>, 3
-// <true>, 4 env_merge_kernel, 5 fsm_act_kernel.
+// <true>, 4 env_merge_kernel, 5 fsm_act_kernel, 6
+// rollout_chunk_clocked_kernel<false>, 7 <true>.
 int pomcpp_chunk_warps() { return pomcpp::CHUNK_WARPS; }
 
 int pomcpp_chunk_grid(int batch) { return pomcpp::chunk_grid(batch); }
@@ -487,23 +534,10 @@ int pomcpp_ctas_per_sm(int kernel) {
     case 3: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_step_kernel<true>, nt, 0); break;
     case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, env_merge_kernel, nt, 0); break;
     case 5: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fsm_act_kernel, nt, 0); break;
+    case 6: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rollout_chunk_clocked_kernel<false>, nt, 0); break;
+    case 7: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rollout_chunk_clocked_kernel<true>, nt, 0); break;
   }
   return err == cudaSuccess ? n : -(int)err;
-}
-
-// The phase clocks' totals (wl::Phase; `out` holds PHASE_SLOTS values),
-// cleared by the read.  Returns the number of slots, 0 if the library was
-// built without -DPOMCPP_PHASE_CLOCKS, a negative CUDA error otherwise.
-int pomcpp_phase_totals(unsigned long long* out) {
-#ifdef POMCPP_PHASE_CLOCKS
-  const unsigned long long zero[pomcpp::wl::PHASE_SLOTS] = {};
-  cudaError_t err = cudaMemcpyFromSymbol(out, pomcpp::phase_totals, sizeof(zero));
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(pomcpp::phase_totals, zero, sizeof(zero));
-  return err == cudaSuccess ? pomcpp::wl::PHASE_SLOTS : -(int)err;
-#else
-  (void)out;
-  return 0;
-#endif
 }
 
 const char* pomcpp_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

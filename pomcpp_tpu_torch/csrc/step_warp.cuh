@@ -73,11 +73,12 @@ namespace wl {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int CPL = 4;  // cells per lane
 
-// Where a chunk's time goes, for `python3 chip_smoke.py --profile`: built
-// with -DPOMCPP_PHASE_CLOCKS, every warp sums the cycles
-// (clock64) it spends between marks, per phase, and a few event counts;
-// without the macro the marks compile to nothing.  The cycles of a phase
-// include the time the warp waited for its turn on the SM.
+// Where a chunk's time goes (pomcpp_tpu_torch/trace.py samples it): the
+// bodies take the clock as a template parameter.  In the clocked chunk
+// kernel (PhaseClock) every warp sums the cycles (clock64) it spends
+// between marks, per phase, and a few event counts; with NoClock, which
+// every other kernel takes, the marks compile to nothing.  The cycles of a
+// phase include the time the warp waited for its turn on the SM.
 enum Phase {
   PH_DRAW = 0,   // moves drawn, pipelined reset merged
   PH_DANGER,     // FSM: danger map
@@ -96,7 +97,6 @@ enum Phase {
   PHASE_SLOTS
 };
 
-#ifdef POMCPP_PHASE_CLOCKS
 struct PhaseClock {
   unsigned last;
   unsigned acc[PHASE_SLOTS];  // a chunk's cycles per phase stay below 2^32
@@ -111,14 +111,21 @@ struct PhaseClock {
     last = now;
   }
   __device__ __forceinline__ void count(int slot, int n = 1) { acc[slot] += n; }
+  // Lane 0 adds the warp's sums into the call's row (PHASE_SLOTS values).
+  __device__ __forceinline__ void flush(unsigned long long* totals, int lane) const {
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < PHASE_SLOTS; ++k) atomicAdd(&totals[k], (unsigned long long)acc[k]);
+    }
+  }
 };
-#else
-struct PhaseClock {
+
+struct NoClock {
   __device__ __forceinline__ void start() {}
   __device__ __forceinline__ void mark(int) {}
   __device__ __forceinline__ void count(int, int = 1) {}
+  __device__ __forceinline__ void flush(unsigned long long*, int) const {}
 };
-#endif
 
 // A lane's four cells: the seven planes of CellState.
 struct Cells {
@@ -314,8 +321,9 @@ __device__ __forceinline__ void restore_bomb_items(Cells& s, const Agents& A, co
 }
 
 // Every lane of the warp calls this with the same `moves` and `A`.
+template <class Clock>
 __device__ void step_board(Cells& s, Agents& A, const int moves[NA], WarpShared& ws,
-                           const Geo& g, PhaseClock& pc) {
+                           const Geo& g, Clock& pc) {
   // ---- Phase 0: flames ----------------------------------------------------
   // (Pads hold zeros and every update below maps zeros to zeros.)
 #pragma unroll

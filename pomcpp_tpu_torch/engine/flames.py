@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..core import queue as q
 from ..core.constants import (
     BOARD_SIZE,
@@ -69,20 +70,16 @@ _RAY_DY = (0, 0, 1, -1)
 # A traversal visits at most 4 rays x (10 cells + 1 stop) + 1 pop per frame.
 _DFS_CAP = STACK_DEPTH * (4 * (BOARD_SIZE + 1) + 1)
 
-# Host reads of "is any board still active" made by the loops (a counter
-# for the census's host-reads-per-step figure).
-HOST_READS = [0]
-
-
 def any_active(mask: torch.Tensor) -> bool:
-    """``mask.any()`` read on the host, counted in ``HOST_READS``."""
-    HOST_READS[0] += 1
+    """``mask.any()`` read on the host, counted in ``trace``'s
+    ``host_reads`` (the census's host-reads-per-step figure)."""
+    trace.COUNTERS["host_reads"] += 1
     return bool(mask.any())
 
 
 def any_flags(*masks) -> list[bool]:
     """``[m.any() for m in masks]`` in ONE host read (counted)."""
-    HOST_READS[0] += 1
+    trace.COUNTERS["host_reads"] += 1
     return torch.stack([m.any() for m in masks]).tolist()
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _ext
+from .. import _ext, trace
 from ..agents.simple import RP_STALE, FsmState
 from ..agents.simple_cellular import simple_agent_cell_joint
 from ..convert import fsm_to_simple_state, simple_state_to_fsm
@@ -54,13 +54,15 @@ def fsm_act_plain(cs: CellState, fsm_state, rand):
 
 def fsm_inputs(fsm_state, b: int, device):
     """The ten FSM arrays as contiguous int32 tensors [b, 4] on ``device``
-    (the device of the state arrays they are launched with)."""
+    (the device of the state arrays they are launched with); a conversion
+    counts in ``trace``'s ``wrapper_ops``."""
     arrays = []
     for t in fsm_state:
-        t = t.to(I32).contiguous()
-        if t.device != device or t.shape != (b, AGENT_COUNT):
+        a = t.to(I32).contiguous()
+        if a.device != device or a.shape != (b, AGENT_COUNT):
             raise ValueError(f"FSM state arrays must be i32[{b}, 4] on {device}")
-        arrays.append(t)
+        arrays.append(a)
+    trace.count_copies(fsm_state, arrays)
     if len(arrays) != 10:
         raise ValueError("the FSM state has ten arrays")
     return arrays
@@ -76,7 +78,9 @@ def _fsm_act_launch(lib, stream, cs: CellState, fsm_state, rand):
     ins = game_arrays(cs, "cpu" if stream is None else "cuda")
     b, dev = ins[0].shape[0], ins[0].device
     fin = fsm_inputs(fsm_state, b, dev)
-    rand = rand.to(I32).contiguous()
+    r = rand.to(I32).contiguous()
+    trace.COUNTERS["wrapper_ops"] += r is not rand
+    rand = r
     if rand.shape != (b, AGENT_COUNT) or rand.device != dev:
         raise ValueError(f"rand must be i32[{b}, 4] on {dev}")
     fout = [torch.empty_like(t) for t in fin]

@@ -18,7 +18,12 @@ On a CUDA tensor a wrapper launches its kernel (``csrc/fused_step.cu``) and
 adds one to ``_ext.LAUNCHES``; on a CPU tensor it runs the plain version.
 There is no fallback between the two.  The simple chunk is its own
 template instantiation of the chunk kernel and has its own launch count,
-``rollout_chunk_simple_kernel``.
+``rollout_chunk_simple_kernel``.  ``rollout_chunk`` carries the spans
+``chunk`` -> ``chunk.args``, ``chunk.launch``, ``chunk.out`` of ``trace``;
+while tracing is on, one launcher call in ``trace.SAMPLE_EVERY`` launches
+the clocked instance (``rollout_chunk_clocked_kernel``, counted as
+``rollout_chunk_clocked_kernel`` / ``rollout_chunk_clocked_simple_kernel``),
+which writes the call's phase totals.
 
 PRNG.  The TPU kernel's in-kernel generator cannot be reproduced off the
 TPU, so the port draws from Philox4x32-10 (Random123's
@@ -45,7 +50,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _ext
+from .. import _ext, trace
 from ..core.constants import (
     AGENT_COUNT,
     BOARD_SIZE,
@@ -273,18 +278,20 @@ def rollout_chunk_plain(cs: CellState, seed: int, steps: int,
 
 
 def _to_device(cs: CellState, device) -> CellState:
-    return CellState(*(t.to(device) for t in cs))
+    out = CellState(*(t.to(device) for t in cs))
+    trace.count_copies(cs, out)
+    return out
 
 
 def _kernel_inputs(cs: CellState, device_type: str):
     """The 14 kernel-side arrays as contiguous int32 tensors, all of which
     must lie on a device of ``device_type`` (the launcher's)."""
-    arrays = []
-    for name in PLANE_FIELDS + AGENT_FIELDS:
-        t = getattr(cs, name).to(I32).contiguous()
+    fields = [getattr(cs, name) for name in PLANE_FIELDS + AGENT_FIELDS]
+    arrays = [t.to(I32).contiguous() for t in fields]
+    trace.count_copies(fields, arrays)
+    for name, t in zip(PLANE_FIELDS + AGENT_FIELDS, arrays):
         if t.device.type != device_type:
             raise ValueError(f"{name} is not on a {device_type} device")
-        arrays.append(t)
     b = cs.board.shape[0]
     for t, width in zip(arrays, (NUM_CELLS,) * 7 + (AGENT_COUNT,) * 7):
         if t.shape != (b, width):
@@ -293,12 +300,15 @@ def _kernel_inputs(cs: CellState, device_type: str):
     return arrays
 
 
-def _kernel_outputs(cs: CellState, outs, timestep) -> CellState:
+def _kernel_outputs(cs: CellState, outs, steps: int) -> CellState:
+    """The chunk's output state: the two flags cast to bool, ``alive_count``
+    recounted, ``timestep`` advanced by ``steps`` (five operations)."""
     fields = dict(zip(PLANE_FIELDS + AGENT_FIELDS, outs))
     fields["agent_can_kick"] = fields["agent_can_kick"] != 0
     fields["agent_dead"] = fields["agent_dead"] != 0
     out = cs._replace(**fields)
-    return _with_counts(out, timestep)
+    trace.COUNTERS["wrapper_ops"] += 5
+    return _with_counts(out, cs.timestep + steps)
 
 
 GAME_DTYPES = (torch.int32,) * 12 + (torch.bool,) * 2 + (torch.int32,) * 2
@@ -319,6 +329,7 @@ def game_arrays(cs: CellState, device_type: str):
             raise ValueError(f"{name} of shape {tuple(t.shape)}, expected "
                              f"{shape}")
         arrays.append(t.to(dtype).contiguous())
+    trace.count_copies(cs, arrays)
     return arrays
 
 
@@ -328,7 +339,9 @@ def _fused_step_launch(lib, stream, cs: CellState, moves) -> CellState:
     on CPU tensors, not counted as a launch)."""
     ins = game_arrays(cs, "cpu" if stream is None else "cuda")
     b, dev = ins[0].shape[0], ins[0].device
-    moves = moves.to(device=dev, dtype=I32).contiguous()
+    mv = moves.to(device=dev, dtype=I32).contiguous()
+    trace.COUNTERS["wrapper_ops"] += mv is not moves
+    moves = mv
     if moves.shape != (b, AGENT_COUNT):
         raise ValueError(f"moves must be i32[{b}, 4]")
     outs = [torch.empty_like(t) for t in ins]
@@ -359,7 +372,8 @@ def _rollout_chunk_launch(lib, stream, cs, seed, steps, n_moves, moves, record,
     """Marshal the arguments and call the chunk launcher of ``lib``: an
     ``nvcc`` build on the card's stream, which counts as a launch, or, in
     the tests, the host build of the same source on CPU tensors
-    (``stream=None``), which does not."""
+    (``stream=None``), which does not.  While tracing is on, a sampled call
+    (``trace.sample_chunk``) launches the clocked instance."""
     ins = _kernel_inputs(cs, "cpu" if stream is None else "cuda")
     b, dev = ins[0].shape[0], ins[0].device
     outs = [torch.empty_like(t) for t in ins]
@@ -367,13 +381,16 @@ def _rollout_chunk_launch(lib, stream, cs, seed, steps, n_moves, moves, record,
     if prng_rand and not inject_slots:
         moves = None   # the draws come from Philox; nothing reads moves
     if moves is not None:
-        moves = moves.to(device=dev, dtype=I32).contiguous()
+        mv = moves.to(device=dev, dtype=I32).contiguous()
+        trace.COUNTERS["wrapper_ops"] += mv is not moves
+        moves = mv
         if moves.shape != (steps, b, AGENT_COUNT):
             raise ValueError(f"moves must be i32[{steps}, {b}, 4]")
         mv_ptr = moves.data_ptr()
     if reset_boards is not None:
         rb, rh = (r.to(device=dev, dtype=I32).contiguous()
                   for r in reset_boards)
+        trace.count_copies(reset_boards, (rb, rh))
         if rb.shape != (b, NUM_CELLS) or rh.shape != (b, NUM_CELLS):
             raise ValueError(f"reset_boards must be two i32[{b}, 121] planes")
         rb_ptr, rh_ptr = rb.data_ptr(), rh.data_ptr()
@@ -382,29 +399,40 @@ def _rollout_chunk_launch(lib, stream, cs, seed, steps, n_moves, moves, record,
         rec_done = torch.empty((steps, b), dtype=I32, device=dev)
         rm_ptr, rd_ptr = rec_moves.data_ptr(), rec_done.data_ptr()
     key0, key1 = seed & _MASK32, (seed >> 32) & _MASK32
+    totals = trace.ON and trace.sample_chunk(dev) or None
     if fsm_state is None:
+        in_view, out_view = _ext.state_view(ins), _ext.state_view(outs)
+        if trace.ON:
+            trace.phase("chunk.launch")
         _ext.check(lib.pomcpp_rollout_chunk(
-            _ext.state_view(ins), _ext.state_view(outs), b, steps, n_moves,
-            key0, key1, mv_ptr, rb_ptr, rh_ptr, int(auto_reset), rm_ptr,
-            rd_ptr, stream,
+            in_view, out_view, b, steps, n_moves, key0, key1, mv_ptr, rb_ptr,
+            rh_ptr, int(auto_reset), rm_ptr, rd_ptr, totals, stream,
         ), lib.pomcpp_error_string)
-        kernel = "rollout_chunk_kernel"
+        kernel = "rollout_chunk_clocked_kernel" if totals else \
+            "rollout_chunk_kernel"
     else:
         fin = fsm_inputs(fsm_state, b, dev)
         fout = [torch.empty_like(t) for t in fin]
         inject_mask = sum(1 << s for s in set(inject_slots))
+        views = (_ext.state_view(ins), _ext.state_view(outs),
+                 _ext.fsm_view(fin), _ext.fsm_view(fout))
+        if trace.ON:
+            trace.phase("chunk.launch")
         _ext.check(lib.pomcpp_rollout_chunk_simple(
-            _ext.state_view(ins), _ext.state_view(outs), _ext.fsm_view(fin),
-            _ext.fsm_view(fout), b, steps, key0, key1, mv_ptr, inject_mask,
+            *views, b, steps, key0, key1, mv_ptr, inject_mask,
             int(prng_rand), rb_ptr, rh_ptr, int(auto_reset), rm_ptr, rd_ptr,
-            stream,
+            totals, stream,
         ), lib.pomcpp_error_string)
-        kernel = "rollout_chunk_simple_kernel"
+        kernel = "rollout_chunk_clocked_simple_kernel" if totals else \
+            "rollout_chunk_simple_kernel"
     if stream is not None:
         _ext.LAUNCHES[kernel] += 1
-    out = (_kernel_outputs(cs, outs, cs.timestep + steps),)
+    if trace.ON:
+        trace.phase("chunk.out")
+    out = (_kernel_outputs(cs, outs, steps),)
     if record:
         out += (rec_moves, rec_done != 0)
+        trace.COUNTERS["wrapper_ops"] += 1
     if fsm_state is not None:
         out += (FsmState(*fout),)
     return out if len(out) > 1 else out[0]
@@ -458,26 +486,39 @@ def rollout_chunk(cs: CellState, seed: int, steps: int, policy: str = "random",
     fresh terrain, and ``record=True`` also returns the moves taken
     (i32[steps, B, 4]) and the end-of-step done mask (bool[steps, B]).
     """
-    inject_slots = tuple(inject_slots)
-    n_moves = _check_args(policy, moves, fsm_state, inject_slots)
-    if reset_boards is not None and not auto_reset:
-        raise ValueError("reset_boards is the auto-reset test hook")
-    device = resolve_device(device)
-    cs = _to_device(cs, device)
-    if moves is not None:
-        moves = torch.as_tensor(moves).to(device=device, dtype=I32)
-    if reset_boards is not None:
-        reset_boards = tuple(
-            torch.as_tensor(r).to(device=device, dtype=I32)
-            for r in reset_boards
-        )
-    if fsm_state is not None:
-        fsm_state = FsmState(*(torch.as_tensor(t).to(device=device, dtype=I32)
-                               for t in fsm_state))
-    if device.type == "cpu":
-        return rollout_chunk_plain(cs, seed, steps, policy, moves, record,
+    span = trace.ON and trace.begin("chunk")
+    try:
+        if span:
+            trace.phase("chunk.args")
+        inject_slots = tuple(inject_slots)
+        n_moves = _check_args(policy, moves, fsm_state, inject_slots)
+        if reset_boards is not None and not auto_reset:
+            raise ValueError("reset_boards is the auto-reset test hook")
+        device = resolve_device(device)
+        cs = _to_device(cs, device)
+        if moves is not None:
+            mv = torch.as_tensor(moves).to(device=device, dtype=I32)
+            trace.COUNTERS["wrapper_ops"] += mv is not moves
+            moves = mv
+        if reset_boards is not None:
+            rb = tuple(torch.as_tensor(r).to(device=device, dtype=I32)
+                       for r in reset_boards)
+            trace.count_copies(reset_boards, rb)
+            reset_boards = rb
+        if fsm_state is not None:
+            fsm = FsmState(*(torch.as_tensor(t).to(device=device, dtype=I32)
+                             for t in fsm_state))
+            trace.count_copies(fsm_state, fsm)
+            fsm_state = fsm
+        if device.type == "cpu":
+            if span:
+                trace.phase("chunk.launch")
+            return rollout_chunk_plain(cs, seed, steps, policy, moves, record,
+                                       auto_reset, reset_boards, fsm_state,
+                                       inject_slots, prng_rand)
+        return _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record,
                                    auto_reset, reset_boards, fsm_state,
                                    inject_slots, prng_rand)
-    return _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record,
-                               auto_reset, reset_boards, fsm_state,
-                               inject_slots, prng_rand)
+    finally:
+        if span:
+            trace.end(span)

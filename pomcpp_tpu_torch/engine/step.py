@@ -12,17 +12,18 @@ src/bboard/step.cpp:9-284), over a batch of queue-encoded ``State``s and
 Like the reference, this function does NOT advance ``timestep`` -- the
 environment does (environment.cpp:150).  It runs on whatever device the
 state lives on; its loops read "is any board still active" on the host
-(``engine.flames.HOST_READS`` counts those reads).
+(``trace.COUNTERS["host_reads"]`` counts those reads).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..core.state import I32, State
 from . import util
 from .bombs import bomb_block_pass, bomb_move_pass
-from .flames import HOST_READS, tick_bombs, tick_flames
+from .flames import tick_bombs, tick_flames
 from .movement import move_agents
 
 
@@ -43,7 +44,7 @@ def step(state: State, moves) -> State:
     # this phase: one host read bounds both passes.
     state = util.reset_bomb_flags(state)
     bdest_x, bdest_y = util.fill_bomb_dest(state)
-    HOST_READS[0] += 1
+    trace.COUNTERS["host_reads"] += 1
     n = int(state.bomb_count.max()) if state.bomb_count.numel() else 0
     state = bomb_block_pass(state, moves, bdest_x, bdest_y, old_x, old_y, n)
     state = bomb_move_pass(state, moves, bdest_x, bdest_y, n)

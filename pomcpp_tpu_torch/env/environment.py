@@ -18,7 +18,8 @@ form of its JAX counterpart -- there is no ``vmap`` here:
 * ``env_step_auto_reset_batch_fsm(...)`` -- mixed control: SimpleAgent
   opponents act inside the chunk kernel (``rollout_chunk`` with
   ``steps=1``), learner lanes are injected; on the card the epilogue
-  follows as ``env_merge_kernel``: two launches
+  follows as ``env_merge_kernel``: two launches.  It carries the spans
+  ``env.step`` -> ``env.args``, ``chunk``, ``merge`` of ``trace``
 * ``act_all`` / ``rollout`` / ``rollout_stateful`` -- policy loops
 
 Two engines, chosen by the game's type as the JAX ``_step_fn`` chooses:
@@ -65,7 +66,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _ext
+from .. import _ext, trace
 from ..core.board_gen import (
     STREAM_ENV_CELLS,
     STREAM_ENV_FLAGS,
@@ -114,8 +115,18 @@ def _step_fn(game):
 
 
 def _env_to_device(es: EnvState, device) -> EnvState:
-    return EnvState(_game_map(lambda t: t.to(device), es.game),
-                    *(t.to(device) for t in es[1:]))
+    moved = []
+
+    def to(t):
+        out = t.to(device)
+        if out is not t:
+            moved.append(out)
+        return out
+
+    out = EnvState(_game_map(to, es.game), *map(to, es[1:]))
+    if moved:
+        trace.COUNTERS["wrapper_ops"] += len(moved)
+    return out
 
 
 def _where_env(mask, a: EnvState, b: EnvState) -> EnvState:
@@ -243,8 +254,9 @@ def _detect_terminal(es: EnvState, team_mode: bool = False,
 
 def _prepare(es: EnvState, moves, device):
     device = resolve_device(device)
-    moves = torch.as_tensor(moves).to(device=device, dtype=I32)
-    return _env_to_device(es, device), moves, device
+    mv = torch.as_tensor(moves).to(device=device, dtype=I32)
+    trace.COUNTERS["wrapper_ops"] += mv is not moves
+    return _env_to_device(es, device), mv, device
 
 
 def env_step(es: EnvState, moves, team_mode: bool = False,
@@ -325,6 +337,7 @@ def _env_arrays(es: EnvState, device_type: str):
             raise ValueError(f"{name} must be {list(shape)} on a "
                              f"{device_type} device")
         arrays.append(t.to(dtype).contiguous())
+    trace.count_copies(es[1:], arrays)
     return arrays
 
 
@@ -336,7 +349,10 @@ def _env_launch(lib, stream, es: EnvState, team_mode: bool, max_steps: int,
     which writes that stepped batch IN PLACE (the done boards' fresh games)
     and returns it: only the caller's one-step chunk holds it.
     ``stream=None`` is the tests' host build of the source on CPU tensors,
-    which does not count as a launch."""
+    which does not count as a launch.  Inside an open ``merge`` span its
+    phases are ``merge.args`` and ``merge.launch``."""
+    if trace.ON:
+        trace.phase("merge.args")
     dev_type = "cpu" if stream is None else "cuda"
     if not -2 ** 31 <= max_steps < 2 ** 31:
         raise ValueError("max_steps must fit in 32 bits")
@@ -348,27 +364,34 @@ def _env_launch(lib, stream, es: EnvState, team_mode: bool, max_steps: int,
         raise ValueError(f"the game must hold {b} boards")
     fresh_arrays = None
     if fresh is not None:
-        fresh_arrays = game_arrays(
-            CellState(*(t.to(dev) for t in fresh)), dev_type)
+        fresh_dev = CellState(*(t.to(dev) for t in fresh))
+        trace.count_copies(fresh, fresh_dev)
+        fresh_arrays = game_arrays(fresh_dev, dev_type)
         if fresh_arrays[0].shape[0] != b:
             raise ValueError(f"fresh must hold {b} boards")
     env_out = [torch.empty_like(t) for t in env_in]
     cfg = (int(team_mode), int(max_steps), int(randomize_positions), stream)
     if game is None:
-        moves = moves.to(device=dev, dtype=I32).contiguous()
+        mv = moves.to(device=dev, dtype=I32).contiguous()
+        trace.COUNTERS["wrapper_ops"] += mv is not moves
+        moves = mv
         if moves.shape != (b, AGENT_COUNT):
             raise ValueError(f"moves must be i32[{b}, 4]")
         outs = [torch.empty_like(t) for t in games]
-        err = lib.pomcpp_env_step(
-            _ext.game_view(games), _ext.env_view(env_in), _ext.game_view(outs),
-            _ext.env_view(env_out), _ext.game_view(fresh_arrays),
-            moves.data_ptr(), b, *cfg)
+        views = (_ext.game_view(games), _ext.env_view(env_in),
+                 _ext.game_view(outs), _ext.env_view(env_out),
+                 _ext.game_view(fresh_arrays))
+        if trace.ON:
+            trace.phase("merge.launch")
+        err = lib.pomcpp_env_step(*views, moves.data_ptr(), b, *cfg)
         kernel = "fused_env_step_kernel"
     else:
         outs = games
-        err = lib.pomcpp_env_merge(
-            _ext.game_view(games), _ext.env_view(env_in),
-            _ext.env_view(env_out), _ext.game_view(fresh_arrays), b, *cfg)
+        views = (_ext.game_view(games), _ext.env_view(env_in),
+                 _ext.env_view(env_out), _ext.game_view(fresh_arrays))
+        if trace.ON:
+            trace.phase("merge.launch")
+        err = lib.pomcpp_env_merge(*views, b, *cfg)
         kernel = "env_merge_kernel"
     _ext.check(err, lib.pomcpp_error_string)
     if stream is not None:
@@ -434,25 +457,39 @@ def env_step_auto_reset_batch_fsm(es: EnvState, learner_moves, fsm_state,
     fsm_state')``; the caller owns resetting the ``fsm_state`` rows of
     finished boards.
     """
-    _check_fused_game(es.game)
-    es, learner_moves, device = _prepare(es, learner_moves, device)
-    slots = tuple(learner_slots)
-    mv = learner_moves
-    if rand_moves is not None:
-        rand_moves = torch.as_tensor(rand_moves).to(device=device, dtype=I32)
-        lane = torch.zeros(AGENT_COUNT, dtype=torch.bool, device=device)
-        lane[list(slots)] = True
-        mv = torch.where(lane, learner_moves, rand_moves)
-    game, fsm2 = rollout_chunk(
-        es.game, seed, 1, "simple", moves=mv[None], auto_reset=False,
-        fsm_state=fsm_state, inject_slots=slots,
-        prng_rand=rand_moves is None, device=device,
-    )
-    if device.type == "cuda":
-        return _env_launch_cuda(es, team_mode, max_steps, randomize_positions,
-                                fresh, game=game), fsm2
-    return _merge_done_and_reset(es, game, team_mode, max_steps,
-                                 randomize_positions, fresh), fsm2
+    span = trace.ON and trace.begin("env.step")
+    try:
+        if span:
+            trace.phase("env.args")
+        _check_fused_game(es.game)
+        es, learner_moves, device = _prepare(es, learner_moves, device)
+        slots = tuple(learner_slots)
+        mv = learner_moves
+        if rand_moves is not None:
+            rm = torch.as_tensor(rand_moves).to(device=device, dtype=I32)
+            lane = torch.zeros(AGENT_COUNT, dtype=torch.bool, device=device)
+            lane[list(slots)] = True
+            mv = torch.where(lane, learner_moves, rm)
+            trace.COUNTERS["wrapper_ops"] += 2 + (rm is not rand_moves)
+            rand_moves = rm
+        game, fsm2 = rollout_chunk(
+            es.game, seed, 1, "simple", moves=mv[None], auto_reset=False,
+            fsm_state=fsm_state, inject_slots=slots,
+            prng_rand=rand_moves is None, device=device,
+        )
+        merge = span and trace.begin("merge")
+        if device.type == "cuda":
+            out = _env_launch_cuda(es, team_mode, max_steps,
+                                   randomize_positions, fresh, game=game)
+        else:
+            out = _merge_done_and_reset(es, game, team_mode, max_steps,
+                                        randomize_positions, fresh)
+        if merge:
+            trace.end(merge)
+        return out, fsm2
+    finally:
+        if span:
+            trace.end(span)
 
 
 def act_all(policy, generator, game: CellState) -> torch.Tensor:

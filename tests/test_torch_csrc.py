@@ -94,7 +94,7 @@ def test_the_cta_layout_is_gone():
     assert not (CSRC / "step_block.cuh").exists()
     code = _strip_comments((CSRC / "fused_step.cu").read_text())
     kernels = re.findall(r"__global__ void (__launch_bounds__\([^)]*\))", code)
-    assert len(kernels) == 4
+    assert len(kernels) == 5
     assert all(k.startswith("__launch_bounds__(CHUNK_WARPS * 32") for k in kernels)
     assert not CTA_BARRIER.search(code)
 
@@ -115,7 +115,8 @@ def _kernel_source(name: str, end: str) -> str:
 
 
 def _chunk_kernel_source() -> str:
-    return _kernel_source("rollout_chunk_kernel", "fsm_act_kernel(")
+    """The chunk kernels' body and the two kernels that instantiate it."""
+    return _kernel_source("rollout_chunk_board", "fsm_act_kernel(")
 
 
 def test_chunk_kernel_runs_the_warp_layout_without_a_cta_barrier():
@@ -167,9 +168,14 @@ def test_chunk_grid_is_the_launchers():
     warp past the end of the batch returns."""
     code = _strip_comments((CSRC / "fused_step.cu").read_text())
     assert "return (batch + CHUNK_WARPS - 1) / CHUNK_WARPS;" in code
-    assert code.count("pomcpp::chunk_grid(batch)") == 7
-    assert code.count("pomcpp::CHUNK_WARPS * 32, stream") == 4
-    assert code.count("pomcpp::CHUNK_WARPS * 32,\n") == 2
+    assert "int pomcpp_chunk_grid(int batch) { return pomcpp::chunk_grid(batch); }" \
+        in code
+    launches = [" ".join(c.split()) for c in
+                re.findall(r"(?<!define )POMCPP_LAUNCH\(([^;]*)\);", code)]
+    assert len(launches) == 6     # the chunk's plain and clocked instances
+    for call in launches:
+        assert re.match(r"[\w:<>]+, (pomcpp::)?chunk_grid\(batch\), "
+                        r"(pomcpp::)?CHUNK_WARPS \* 32, stream,", call), call
     assert "blockIdx.x * CHUNK_WARPS + warp" in _chunk_kernel_source()
     assert "if (b >= batch) return;" in _chunk_kernel_source()
 
@@ -228,12 +234,25 @@ def test_build_log_describes_a_library_built_by_an_earlier_run(
         registers=128, stack_bytes=0, spill_store_bytes=0,
         spill_load_bytes=0, smem_bytes=2048, warps_per_cta=4, ctas_per_sm=4,
         boards_per_sm=16)
-    # A build with the phase clocks is a library, and a log, of its own.
-    assert _ext.build_log(("kernels",), chip_smoke.PHASE_CLOCKS) == ""
+    # The clocked instance lives in the same library: its residency line is
+    # read from the same log and the same runtime query as the plain one's.
+    assert res["rollout_chunk_clocked_kernel"] == dict(     # no log line
+        warps_per_cta=4, ctas_per_sm=4, boards_per_sm=16)
     empty = chip_smoke.warp_residency(chip_smoke.kernel_resources(""),
                                        _Residency())
     assert empty["rollout_chunk_simple_kernel"]["boards_per_sm"] == 16
     assert empty["fused_env_step_kernel"]["boards_per_sm"] == 16
+    assert empty["rollout_chunk_clocked_kernel"]["boards_per_sm"] == 16
+    assert empty["rollout_chunk_clocked_simple_kernel"]["boards_per_sm"] == 16
+    clocked = chip_smoke.kernel_resources(
+        "ptxas info    : Compiling entry function "
+        "'_ZN6pomcpp28rollout_chunk_clocked_kernelILb1EEEvNS_9StateViewE' "
+        "for 'sm_90a'\nptxas info    : 8 bytes stack frame, 120 bytes spill "
+        "stores, 130 bytes spill loads\nptxas info    : Used 128 registers, "
+        "8832 bytes smem\n")
+    assert clocked == {"rollout_chunk_clocked_simple_kernel": dict(
+        registers=128, stack_bytes=8, spill_store_bytes=120,
+        spill_load_bytes=130, smem_bytes=8832)}
 
 
 # --- the kernel's source on the CPU ---------------------------------------------
