@@ -1173,7 +1173,7 @@ def device_ms(fn, reps: int = 20) -> float:
 
 # Operators that only allocate or view: they launch nothing on the device.
 NO_DEVICE_WORK = ("aten.empty", "aten.view", "aten.alias", "aten.detach",
-                  "aten.as_strided")
+                  "aten.as_strided", "aten.unbind")
 
 
 def device_ops(fn) -> list:

@@ -23,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 
@@ -216,11 +217,27 @@ def check(err: int, error_string) -> None:
             f"CUDA kernel launch failed: {error_string(err).decode()} ({err})")
 
 
+# The pointer arrays of the views as ``struct`` layouts: a view built from a
+# list of pointers is one copy of packed bytes.
+_PACKED = {cls: struct.Struct(f"{cls._fields_[0][1]._length_}P")
+           for cls in (StateView, GameView, EnvView, FsmView)}
+
+
+def view(cls, ptrs):
+    """A ``cls`` view over the data pointers ``ptrs`` (ints, in field
+    order), built in one constructor call."""
+    return cls.from_buffer_copy(_PACKED[cls].pack(*ptrs))
+
+
+def row_ptrs(t) -> list:
+    """The data pointers of ``t[0], t[1], ...`` of a contiguous tensor,
+    without making the rows."""
+    base, step = t.data_ptr(), t.stride(0) * t.element_size()
+    return [base + k * step for k in range(t.shape[0])]
+
+
 def _view(cls, arrays):
-    view = cls()
-    for k, t in enumerate(arrays):
-        view.f[k] = t.data_ptr()
-    return view
+    return view(cls, [t.data_ptr() for t in arrays])
 
 
 def state_view(arrays) -> StateView:

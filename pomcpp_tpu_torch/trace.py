@@ -14,7 +14,9 @@ carry them are ``env.environment.env_step_auto_reset_batch_fsm`` and
 ``chunk.args`` holds the argument checks, the conversions and the
 marshalling of the launcher's arguments, ``chunk.launch`` the ctypes
 launcher call and its error check, ``chunk.out`` the output casts and the
-recount; ``merge`` is the env epilogue (``_env_launch``).  On CPU tensors
+recount; ``merge`` is the env epilogue (``_env_launch``).  On the card
+the env step runs its own typed path (``_env_fsm_launch``), which opens the
+same spans and phases around the same launcher calls.  On CPU tensors
 the plain chunk runs where the card's launch would (``chunk.launch``; no
 ``chunk.out``), and the plain epilogue is ``merge`` itself, with no phases.
 ``rollout_chunk`` called on its own makes ``chunk`` a root.
@@ -35,7 +37,11 @@ Counters, always on:
 * ``COUNTERS["wrapper_ops"]``: device operations the chunk and env wrappers
   enqueue with their own PyTorch calls -- a conversion or copy that made a
   new tensor, an output cast, the recount of ``alive_count`` and the
-  timestep's advance (allocations are not operations).
+  timestep's advance (allocations are not operations);
+* ``COUNTERS["arrays_as_is"]``: input arrays that the mixed-control env
+  step's typed path (``env.environment._env_fsm_launch``) takes as they
+  are, checked by their attributes alone, with no conversion or copy call
+  made for them; set against ``wrapper_ops``, its engagement.
 
 Phase clocks.  While tracing is on, every ``SAMPLE_EVERY``-th call of the
 chunk launcher (``engine.fused_step._rollout_chunk_launch``) since
@@ -68,7 +74,7 @@ PHASES = ("draw", "danger", "bfs", "flee", "decide", "move", "bombs", "blast",
 
 ON = False
 LAUNCHES: dict = {}
-COUNTERS = {"host_reads": 0, "wrapper_ops": 0}
+COUNTERS = {"host_reads": 0, "wrapper_ops": 0, "arrays_as_is": 0}
 
 
 class Span(NamedTuple):
@@ -130,6 +136,14 @@ def count_copies(before, after) -> None:
     """Count in ``wrapper_ops`` each tensor of ``after`` that a conversion
     made anew (that is not the tensor at the same place of ``before``)."""
     COUNTERS["wrapper_ops"] += len(after) - sum(map(operator.is_, before, after))
+
+
+def count_marshalled(before, after) -> None:
+    """As ``count_copies``, and count in ``arrays_as_is`` each tensor of
+    ``after`` that is the tensor at the same place of ``before``."""
+    same = sum(map(operator.is_, before, after))
+    COUNTERS["arrays_as_is"] += same
+    COUNTERS["wrapper_ops"] += len(after) - same
 
 
 def _close_to(depth: int, now: int) -> None:

@@ -35,7 +35,7 @@ import pytest
 import torch
 
 import chip_smoke
-from pomcpp_tpu_torch import _ext, probes
+from pomcpp_tpu_torch import _ext, probes, trace
 from pomcpp_tpu_torch.convert import diff_fields
 from pomcpp_tpu_torch.core.board_gen import random_cell_state
 from pomcpp_tpu_torch.engine import fused_step as fs
@@ -698,6 +698,156 @@ def test_env_sources_match_plain_on_key_columns_above_2_32(host_lib, kernel):
         card = plain = plain._replace(done=done)    # reset again, count + 1
     assert int(plain.key[0, 1]) == 5 + 2 ** 32
     assert int(plain.key[:, 2].min()) >= 2 ** 32
+
+
+# --- the mixed-control env step's typed path on the CPU --------------------------
+
+
+# case -> (what the path is handed, env kwargs, learner slots, wrapper_ops
+# and arrays_as_is a step): int64 moves and FSM arrays, or numpy ones, take
+# one conversion each, int32 agent flags none, bool flags the chunk's two;
+# the test hooks' arrays are taken as they are, and ``rand_moves`` makes
+# the chunk's moves in two operations.
+FSM_PATH_CASES = {
+    "typed": ("as_is", dict(max_steps=5), (0,), 7, 28),
+    "int64_moves_and_fsm": ("int64", dict(team_mode=True, max_steps=6),
+                            (0, 2), 18, 17),
+    "numpy_moves_and_fsm": ("numpy", dict(max_steps=5), (1,), 18, 17),
+    "int32_flags": ("flags_i32", dict(max_steps=5, randomize_positions=True),
+                    (), 5, 30),
+    "rand_moves": ("rands", dict(team_mode=True, max_steps=6), (0, 3), 9,
+                   29),
+    "fresh": ("fresh", dict(max_steps=5, randomize_positions=True), (2,), 7,
+              44),
+}
+
+
+def _handed(es, mv, fsm, form, gen):
+    """The inputs of one step in the form a case hands them over, and the
+    test hooks it passes."""
+    b = mv.shape[0]
+    if form == "int64":
+        return (es, mv.long(), [t.long() for t in fsm]), {}
+    if form == "numpy":
+        return (es, mv.long().numpy(), [t.numpy() for t in fsm]), {}
+    if form == "flags_i32":
+        game = es.game._replace(agent_can_kick=es.game.agent_can_kick.int(),
+                                agent_dead=es.game.agent_dead.int())
+        return (es._replace(game=game), mv, fsm), {}
+    if form == "rands":
+        return (es, mv, fsm), dict(rand_moves=torch.randint(
+            0, 6, (b, 4), generator=gen, dtype=torch.int32))
+    if form == "fresh":
+        return (es, mv, fsm), dict(fresh=random_cell_state(
+            b, generator=gen, randomize_positions=True))
+    return (es, mv, fsm), {}
+
+
+def _fsm_path(host_lib, es, mv, fsm, slots, seed, team_mode=False,
+              max_steps=0, randomize_positions=False, **hooks):
+    return env._env_fsm_launch(host_lib, None, es, mv, fsm, slots, seed,
+                               team_mode, max_steps, randomize_positions,
+                               **hooks)
+
+
+@pytest.mark.parametrize("case", sorted(FSM_PATH_CASES))
+@pytest.mark.parametrize("b", [1, 5, 37])
+def test_env_fsm_path_matches_plain(host_lib, b, case):
+    """``_env_fsm_launch`` through the host build against
+    ``env_step_auto_reset_batch_fsm(device="cpu")``, the plain version, over
+    steps in which boards finish (at once, by the step cap, or already
+    done) and reset: every game, env and FSM value bit for bit, the dtypes
+    too; each step's conversions and arrays taken as they are counted."""
+    form, kw, slots, ops, as_is = FSM_PATH_CASES[case]
+    es = env.env_reset(31, b, device="cpu")
+    gen = torch.Generator().manual_seed(b)
+    done = torch.zeros(b, dtype=torch.bool)
+    done[1::4] = True
+    done[b // 2] = True
+    dead = torch.rand((b, 4), generator=gen) < 0.3
+    card = plain = es._replace(game=chip_smoke.kill(es.game, dead), done=done)
+    fsm_c = fsm_p = simple_fsm_state_init(b, "cpu")
+    resets = 0
+    for t in range(8):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
+        resets += int(plain.done.sum())
+        args, hooks = _handed(card, mv, fsm_c, form, gen)
+        before = dict(trace.COUNTERS)
+        card, fsm_c = _fsm_path(host_lib, *args, slots, 60 + t, **kw,
+                                **hooks)
+        assert trace.COUNTERS["wrapper_ops"] - before["wrapper_ops"] == ops
+        assert trace.COUNTERS["arrays_as_is"] - before["arrays_as_is"] == \
+            as_is
+        plain, fsm_p = env.env_step_auto_reset_batch_fsm(
+            plain, mv, fsm_p, slots, 60 + t, device="cpu", **kw, **hooks)
+        _same_env(card, plain, f"{case} {b} boards step {t}")
+        assert all(a.dtype == p.dtype for a, p in zip(card.game, plain.game))
+        for k, (x, y) in enumerate(zip(fsm_c, fsm_p)):
+            assert x.dtype == y.dtype and torch.equal(x, y), f"FSM {k}, {t}"
+    assert resets > 0
+
+
+def test_env_fsm_path_refuses_a_wrong_device_or_shape(host_lib):
+    """The host build reads CPU memory only: an array elsewhere, or of
+    another shape, is refused before anything reads it."""
+    b = 4
+    es = env.env_reset(3, b, device="cpu")
+    fsm = list(simple_fsm_state_init(b, "cpu"))
+    mv = torch.zeros((b, 4), dtype=torch.int32)
+    game = es.game
+    bad = [
+        ("moves must be \\[4, 4\\] on a cpu", es, mv.to("meta"), fsm),
+        ("moves must be", es, mv[:3], fsm),
+        ("board must be", es._replace(
+            game=game._replace(board=game.board.to("meta"))), mv, fsm),
+        ("agent_dead must be", es._replace(
+            game=game._replace(agent_dead=game.agent_dead[:, :3])), mv, fsm),
+        ("fsm_state must be", es, mv, fsm[:3] + [fsm[3][:, :2]] + fsm[4:]),
+        ("ten arrays", es, mv, fsm[:9]),
+        ("key must be", es._replace(key=es.key[:, :2]), mv, fsm),
+        ("done must be", es._replace(done=es.done.to("meta")), mv, fsm),
+        ("timestep must be", es._replace(game=game._replace(
+            timestep=game.timestep[:2])), mv, fsm),
+    ]
+    for match, *args in bad:
+        with pytest.raises(ValueError, match=match):
+            _fsm_path(host_lib, *args, (0,), 5)
+    for match, hooks in [
+            ("rand_moves must be", dict(rand_moves=mv.to("meta"))),
+            ("rand_moves must be", dict(rand_moves=[[0] * 4] * 3)),
+            ("fresh board must be", dict(fresh=game._replace(
+                board=game.board[:, :120])))]:
+        with pytest.raises(ValueError, match=match):
+            _fsm_path(host_lib, es, mv, fsm, (0,), 5, **hooks)
+    with pytest.raises(ValueError, match="must name agents 0-3"):
+        _fsm_path(host_lib, es, mv, fsm, (4,), 5)
+    _fsm_path(host_lib, es, mv, fsm, (0,), 5)
+
+
+def test_env_fsm_path_calls_no_operator_but_flags_and_outputs(host_lib):
+    """On typed inputs the path dispatches exactly 7 PyTorch operators that
+    could launch work (``chip_smoke.device_ops``): the bool agent flags'
+    two conversions to the chunk's int32 and the five output operations
+    (two casts back, the recount's two, the timestep); the other 28 input
+    arrays are taken as they are.  The outputs of a group share one
+    allocation."""
+    b = 5
+    es = env.env_reset(3, b, device="cpu")
+    fsm = simple_fsm_state_init(b, "cpu")
+    mv = torch.randint(0, 6, (b, 4), dtype=torch.int32)
+    before = dict(trace.COUNTERS)
+    out = []
+    ops = chip_smoke.device_ops(lambda: out.extend(_fsm_path(
+        host_lib, es, mv, fsm, (0,), 5, max_steps=800)))
+    assert sorted(ops) == sorted(
+        ["aten._to_copy.default"] * 2 + ["aten.ne.Scalar"] * 2 +
+        ["aten.sum.dim_IntList", "aten.rsub.Scalar", "aten.add.Tensor"])
+    assert trace.COUNTERS["wrapper_ops"] - before["wrapper_ops"] == 7
+    assert trace.COUNTERS["arrays_as_is"] - before["arrays_as_is"] == 28
+    (card, fsm2), storage = out, (lambda t: t.untyped_storage().data_ptr())
+    assert len({storage(t) for t in card.game[:7]}) == 1
+    assert len({storage(t) for t in card.game[7:12]}) == 1
+    assert len({storage(t) for t in fsm2}) == 1
 
 
 # --- probe_dot_tc_kernel's arithmetic on the CPU --------------------------------

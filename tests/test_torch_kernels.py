@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import chip_smoke
-from pomcpp_tpu_torch import _ext
+from pomcpp_tpu_torch import _ext, trace
 from pomcpp_tpu_torch.convert import diff_fields
 from pomcpp_tpu_torch.core.board_gen import random_cell_state
 from pomcpp_tpu_torch.engine.fsm import (
@@ -203,6 +203,51 @@ def test_env_kernels_on_the_card_match_cpu(cuda, inject, all_done):
                 plain = env.env_step_auto_reset_batch(
                     plain, mv, fused=True, fresh=fresh, device="cpu", **kw)
             _same_env(card, plain, f"fsm={fsm_path} step {t}")
+
+
+@pytest.mark.parametrize("form,as_is", [("typed", 28), ("int64", 17),
+                                        ("host", 17)])
+def test_fsm_env_step_typed_path_on_the_card(cuda, form, as_is):
+    """The env step's own card path (``_env_fsm_launch``) from a state on
+    the card, with int32 or int64 moves and FSM arrays on the card, or
+    moves as a numpy array and FSM arrays on the host (copied to the card):
+    every step equals the plain version on the CPU bit for bit (game, env
+    and FSM state), launches exactly one simple chunk and one merge, reads
+    nothing back from arrays on the card, and takes ``as_is`` of its 30
+    input arrays as they are."""
+    b = 256
+    start = chip_smoke.env_held_start(b, 6)
+    plain, card = start, env._env_to_device(start, cuda)
+    fsm_p = simple_fsm_state_init(b, "cpu")
+    fsm_c = simple_fsm_state_init(b, cuda)
+    gen = torch.Generator().manual_seed(11)
+    for t in range(16):
+        mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
+        mv_c, fsm_in = mv.to(cuda), fsm_c
+        if form == "int64":
+            mv_c, fsm_in = mv_c.long(), [x.long() for x in fsm_c]
+        if form == "host":      # a copy to the card synchronizes
+            mv_c, fsm_in = mv.numpy(), [x.cpu() for x in fsm_c]
+        before, counts = dict(_ext.LAUNCHES), dict(trace.COUNTERS)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if form != "host" else
+                                       "default")
+        try:
+            card, fsm_c = env.env_step_auto_reset_batch_fsm(
+                card, mv_c, fsm_in, (0,), 90 + t, max_steps=10)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert {k: v - before[k] for k, v in _ext.LAUNCHES.items()
+                if v != before[k]} == {"rollout_chunk_simple_kernel": 1,
+                                       "env_merge_kernel": 1}
+        assert trace.COUNTERS["arrays_as_is"] - counts["arrays_as_is"] == \
+            as_is
+        plain, fsm_p = env.env_step_auto_reset_batch_fsm(
+            plain, mv, fsm_p, (0,), 90 + t, max_steps=10, device="cpu")
+        _same_env(card, plain, f"{form} step {t}")
+        assert all(a.is_cuda and a.dtype == c.dtype and
+                   torch.equal(a.cpu(), c) for a, c in zip(fsm_c, fsm_p))
+    assert card.done.is_cuda and int(plain.key[:, 2].sum()) > b
 
 
 def test_dot_tc_kernel_is_exact_on_the_held_inputs_at_the_scripts_k(cuda):

@@ -47,17 +47,16 @@ def tracing():
 
 @pytest.fixture
 def card_path(host_lib, monkeypatch):
-    """The host build's launchers in the plain versions' place."""
+    """The host build's launchers in the plain versions' place: the env
+    step on CPU tensors takes its card path (``_env_fsm_launch``), and
+    ``rollout_chunk`` its chunk launcher."""
     def chunk(cs, seed, steps, policy, *rest):
         return fs._rollout_chunk_launch(host_lib, None, cs, seed, steps,
                                         fs.POLICY_MOVES[policy], *rest)
 
-    def merge(es, game, team_mode, max_steps, randomize_positions, fresh):
-        return env._env_launch(host_lib, None, es, team_mode, max_steps,
-                               randomize_positions, fresh, game=game)
-
     monkeypatch.setattr(fs, "rollout_chunk_plain", chunk)
-    monkeypatch.setattr(env, "_merge_done_and_reset", merge)
+    monkeypatch.setattr(env, "_card_launcher", lambda device: (host_lib,
+                                                                None))
     return host_lib
 
 
@@ -97,14 +96,21 @@ def _tree(records, root):
     return out
 
 
-@pytest.mark.parametrize("path,tree", [("cpu", CPU_TREE), ("card", CARD_TREE)])
-def test_env_step_span_tree(request, tracing, path, tree):
+@pytest.mark.parametrize("path,tree,counts", [
+    ("cpu", CPU_TREE, {}),
+    ("card", CARD_TREE, {"wrapper_ops": 7, "arrays_as_is": 28}),
+])
+def test_env_step_span_tree(request, tracing, path, tree, counts):
+    """The span tree of each route, and the counters a step moves: on the
+    typed card path every input array but the two bool agent flags is taken
+    as it is."""
     if path == "card":
         request.getfixturevalue("card_path")
     _env_steps(2)
     records = trace.records()
     roots = [r for r in records if r.parent_id == 0]
     assert [r.name for r in roots] == ["env.step", "env.step"]
+    assert all(r.counts == counts for r in roots)
     assert roots[0].span_id != roots[1].span_id
     assert all(_tree(records, r) == tree for r in roots)
     assert len(records) == 2 * (1 + sum(map(len, tree.values())))
