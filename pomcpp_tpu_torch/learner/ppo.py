@@ -8,6 +8,24 @@ opponents), rollouts step the whole batch of boards through the env layer
 kernel plus ``env_merge_kernel`` against in-kernel SimpleAgents -- and the
 update is clipped PPO with GAE.
 
+Tracing (``trace``, off by default).  ``ppo_train_step`` is the span
+``ppo.step``, with ``ppo.collect`` (``collect_rollout_batch``; each
+``env.step`` of the rollout nests in it), ``ppo.act`` (each call of
+``_policy_slots``: features, forward, draw and ``logp``; the bootstrap
+value's included), ``ppo.gae`` and ``ppo.update`` inside it; each of these
+functions called alone is a root.  The counters ``COUNTERS["model_rows"]``
+(rows through the forward in ``_policy_slots``) and
+``COUNTERS["update_rows"]`` (rows through the update's forward and
+backward, each epoch again) are always on and counted from shapes.
+
+The iteration's records.  ``ppo_train_step(..., record=d)`` fills the dict
+``d`` with references to what the iteration made -- ``traj``, ``adv``,
+``ret``, ``boot_value``, ``seeds`` (the mixed-control steps' seeds, ints)
+and ``losses`` (each minibatch's loss, detached, in order) -- with no copy
+and no device operation.  The parameters and the optimizer's state are
+updated in place, so a caller who checks an iteration snapshots them
+before it.
+
 Rewards (per agent, sparse): +1 on the step their game ends won; -1 on the
 step they die; 0 otherwise.
 
@@ -49,12 +67,14 @@ update of the same global batch up to summation order.  ``ppo_init``'s
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..agents.basic import harmless_agent, lazy_agent, random_agent
 from ..agents.simple import simple_agent_init
 from ..agents.simple_cellular import simple_agent_cell_joint
@@ -72,6 +92,23 @@ from ..env.environment import (
 from ..env.observation import DEFAULT_VIEW_RANGE, observe_ego
 from ..models.actor_critic import N_FEATURES, ActorCritic, obs_to_features
 from ..parallel.mesh import all_reduce_sum, fold_seed
+
+
+def _spanned(name: str):
+    """Run the function inside the trace span ``name`` while tracing is on
+    (one global check when it is off)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not trace.ON:
+                return fn(*args, **kwargs)
+            span = trace.begin(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                trace.end(span)
+        return call
+    return wrap
 
 
 class PPOConfig(NamedTuple):
@@ -179,6 +216,7 @@ def sample_categorical(gen: torch.Generator, logits: torch.Tensor,
     return (logits - torch.log(-torch.log(u))).argmax(-1)
 
 
+@_spanned("ppo.act")
 def _policy_slots(model, game, gen, slots, view_range: int = DEFAULT_VIEW_RANGE,
                   moves=None):
     """Sample net moves for the agents ``slots`` of every board ->
@@ -186,6 +224,7 @@ def _policy_slots(model, game, gen, slots, view_range: int = DEFAULT_VIEW_RANGE,
     ``moves`` (i32[B, L]) replaces the draw."""
     feats = _features(game, slots, view_range)
     b, n = feats.shape[:2]
+    trace.COUNTERS["model_rows"] += b * n
     feats = feats.reshape(b, n, -1)
     logits, value = model(feats.reshape(b * n, -1))
     logits = logits.reshape(b, n, -1)
@@ -302,12 +341,13 @@ def _reset_rows(done, fresh, state):
     return type(state)(*map(pick, fresh, state))
 
 
+@_spanned("ppo.collect")
 @torch.no_grad()
 def collect_rollout_batch(model, es: EnvState, cfg: PPOConfig, gen,
                           opp_state=None, frozen_model=None, host_gen=None,
                           moves=None, fresh=None, rand_moves=None,
                           opp_moves=None, opp_rands=None, frozen_moves=None,
-                          device=None):
+                          device=None, record=None):
     """Roll ``cfg.rollout_len`` steps of the whole batch.
 
     Returns ``(final_env, Transition [T, B, L, ...], boot_value f32[B, L])``
@@ -318,8 +358,9 @@ def collect_rollout_batch(model, es: EnvState, cfg: PPOConfig, gen,
     ``opponent="frozen"`` / ``"frozen+simple"``.  ``gen`` draws the moves,
     ``host_gen`` (a CPU generator) the mixed-control steps' seeds; it may be
     None only when ``rand_moves`` is given.  The rollout runs on ``device``
-    (None: the card), where the model must be.  See the module docstring
-    for the hooks.
+    (None: the card), where the model must be.  ``record`` (a dict) gets
+    ``seeds``, the steps' seeds (0 where no mixed-control step draws one).
+    See the module docstring for the hooks.
     """
     slots, frozen, scripted, scripted_name = _roles(cfg)
     if frozen and frozen_model is None:
@@ -339,6 +380,8 @@ def collect_rollout_batch(model, es: EnvState, cfg: PPOConfig, gen,
                              "seeds")
         seeds = torch.randint(0, 2 ** 31 - 1, (steps,),
                               generator=host_gen).tolist()
+    if record is not None:
+        record["seeds"] = seeds
     fresh_opp = opponent_state_init(b, cfg, dev) if simple_opp else None
     opp = fresh_opp if opp_state is None else opp_state
     sl, fz = _on(slots, torch.int64, dev), _on(frozen, torch.int64, dev)
@@ -409,6 +452,7 @@ def collect_rollout_batch(model, es: EnvState, cfg: PPOConfig, gen,
     return es, traj, boot_value
 
 
+@_spanned("ppo.gae")
 def compute_gae(traj: Transition, boot_value, cfg: PPOConfig):
     """GAE over the time axis of a time-major trajectory -> (adv, ret),
     f32[T, B, L].  Truncation is per agent (``term``: the board's end or
@@ -484,16 +528,22 @@ def _sum_metrics(metrics: dict, mesh) -> dict:
     return dict(zip(metrics, total.unbind()))
 
 
-def ppo_update(ts: TrainState, flat_batch, cfg: PPOConfig, mesh=None):
+@_spanned("ppo.update")
+def ppo_update(ts: TrainState, flat_batch, cfg: PPOConfig, mesh=None,
+               record=None):
     """Minibatched clipped-PPO epochs over a flat ``[N, ...]`` batch ->
     ``(ts, metrics of the last minibatch)``.  Each minibatch is gathered on
     its own (``torch.randperm`` on ``ts.gen``); ``shuffle_minibatches=False``
     takes contiguous slabs.  With ``mesh``, the batch is this rank's rows
-    and the update is the global one (see the module docstring)."""
+    and the update is the global one (see the module docstring).
+    ``record`` (a dict) gets ``losses``, each minibatch's loss, detached."""
     n = flat_batch[0].shape[0]
     mb = n // cfg.minibatches
     dev = flat_batch[0].device
     metrics = {}
+    losses = []
+    if record is not None:
+        record["losses"] = losses
     for _ in range(cfg.epochs):
         if cfg.shuffle_minibatches:
             perm = torch.randperm(n, generator=ts.gen, device=dev)
@@ -504,7 +554,9 @@ def ppo_update(ts: TrainState, flat_batch, cfg: PPOConfig, mesh=None):
             else:
                 sl = tuple(x[i * mb:(i + 1) * mb] for x in flat_batch)
             ts.optimizer.zero_grad(set_to_none=True)
+            trace.COUNTERS["update_rows"] += sl[0].shape[0]
             loss, metrics = _ppo_loss(ts.model, sl, cfg, mesh)
+            losses.append(loss.detach())
             loss.backward()
             optimizer_step(ts, cfg, mesh)
     metrics = _sum_metrics({k: v.detach() for k, v in metrics.items()}, mesh)
@@ -522,9 +574,10 @@ def flatten_batch(traj: Transition, adv, ret):
             flat(ret), flat(mask))
 
 
+@_spanned("ppo.step")
 def ppo_train_step(ts: TrainState, es_batch: EnvState,
                    cfg: PPOConfig = PPOConfig(), opp_state=None,
-                   frozen_model=None, device=None, mesh=None):
+                   frozen_model=None, device=None, mesh=None, record=None):
     """One PPO iteration over a batched env on ``device`` (None: the card):
     collect, GAE, update.
 
@@ -534,13 +587,19 @@ def ppo_train_step(ts: TrainState, es_batch: EnvState,
     losses, ``reward_mean`` (reward per finished episode), ``episodes`` and
     ``draws``.  With ``mesh`` (a ``parallel.BoardsMesh``), ``es_batch`` and
     ``opp_state`` are this rank's boards and the update and the metrics
-    are the global batch's, equal on every rank.
+    are the global batch's, equal on every rank.  ``record`` (a dict)
+    receives the iteration's records by reference (see the module
+    docstring).
     """
     out = collect_rollout_batch(ts.model, es_batch, cfg, ts.gen, opp_state,
-                                frozen_model, ts.host_gen, device=device)
+                                frozen_model, ts.host_gen, device=device,
+                                record=record)
     es_final, traj, boot = out[:3]
     adv, ret = compute_gae(traj, boot, cfg)
-    ts, metrics = ppo_update(ts, flatten_batch(traj, adv, ret), cfg, mesh)
+    if record is not None:
+        record.update(traj=traj, adv=adv, ret=ret, boot_value=boot)
+    ts, metrics = ppo_update(ts, flatten_batch(traj, adv, ret), cfg, mesh,
+                             record)
     counts = _sum_metrics({"reward": traj.reward.sum(),
                            "episodes": traj.done.sum().float(),
                            "draws": traj.draw.sum().float()}, mesh)

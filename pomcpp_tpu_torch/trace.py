@@ -4,12 +4,20 @@ clocks, sampled.
 
 Spans.  ``enable()`` turns them on, ``disable()`` off (off by default; no
 environment variable or argument turns them on).  The entry points that
-carry them are ``env.environment.env_step_auto_reset_batch_fsm`` and
-``engine.fused_step.rollout_chunk``:
+carry them are ``env.environment.env_step_auto_reset_batch_fsm``,
+``engine.fused_step.rollout_chunk`` and ``learner.ppo.ppo_train_step``:
 
-    env.step  -> env.args, chunk, merge
-    chunk     -> chunk.args, chunk.launch, chunk.out
-    merge     -> merge.args, merge.launch
+    env.step    -> env.args, chunk, merge
+    chunk       -> chunk.args, chunk.launch, chunk.out
+    merge       -> merge.args, merge.launch
+    ppo.step    -> ppo.collect, ppo.gae, ppo.update
+    ppo.collect -> ppo.act, env.step (each rollout step), ppo.act (bootstrap)
+
+``ppo.act`` is ``_policy_slots`` (features, the forward, the draw,
+``logp``); ``ppo.update`` runs from the update's call until its last
+optimizer step is enqueued, before the device has done it.  Each of the
+learner's functions called alone is a root, and ``env.step`` is a root
+when the learner does not call it.
 
 ``chunk.args`` holds the argument checks, the conversions and the
 marshalling of the launcher's arguments, ``chunk.launch`` the ctypes
@@ -41,7 +49,12 @@ Counters, always on:
 * ``COUNTERS["arrays_as_is"]``: input arrays that the mixed-control env
   step's typed path (``env.environment._env_fsm_launch``) takes as they
   are, checked by their attributes alone, with no conversion or copy call
-  made for them; set against ``wrapper_ops``, its engagement.
+  made for them; set against ``wrapper_ops``, its engagement;
+* ``COUNTERS["model_rows"]``: rows through the actor-critic's forward in
+  the learner's collect (``learner.ppo._policy_slots``, the bootstrap
+  value's included), counted on the host from shapes;
+* ``COUNTERS["update_rows"]``: rows through the forward and backward of
+  ``learner.ppo.ppo_update``, each epoch counted again.
 
 Phase clocks.  While tracing is on, every ``SAMPLE_EVERY``-th call of the
 chunk launcher (``engine.fused_step._rollout_chunk_launch``) since
@@ -74,7 +87,8 @@ PHASES = ("draw", "danger", "bfs", "flee", "decide", "move", "bombs", "blast",
 
 ON = False
 LAUNCHES: dict = {}
-COUNTERS = {"host_reads": 0, "wrapper_ops": 0, "arrays_as_is": 0}
+COUNTERS = {"host_reads": 0, "wrapper_ops": 0, "arrays_as_is": 0,
+            "model_rows": 0, "update_rows": 0}
 
 
 class Span(NamedTuple):

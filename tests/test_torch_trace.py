@@ -268,3 +268,50 @@ def test_records_are_bounded_and_an_error_closes_its_spans(tracing,
                          device="cpu")
     assert trace._open == []
     assert trace.records()[-1].name == "chunk"
+
+
+PPO_STEPS, PPO_BOARDS, PPO_EPOCHS = 3, 4, 2
+PPO_TREE = {"ppo.step": ["ppo.collect", "ppo.gae", "ppo.update"],
+            "ppo.collect": ["ppo.act", "env.step"] * PPO_STEPS + ["ppo.act"],
+            **CPU_TREE}
+
+
+def _ppo_iteration():
+    """One PPO iteration of the flagship's shape on the CPU: learner slot 0
+    against three SimpleAgents on the mixed-control step."""
+    from pomcpp_tpu_torch.learner import ppo
+
+    cfg = ppo.PPOConfig(rollout_len=PPO_STEPS, epochs=PPO_EPOCHS,
+                        minibatches=2, opponent="simple", learner_slots=(0,),
+                        fused_env=True)
+    ts = ppo.ppo_init(4, cfg, "cpu")
+    es = env.env_reset(4, PPO_BOARDS, device="cpu")
+    opp = ppo.opponent_state_init(PPO_BOARDS, cfg, "cpu")
+    ppo.ppo_train_step(ts, es, cfg, opp, device="cpu")
+
+
+# Rows through the forward in collect (a rollout step's and the bootstrap
+# value's) and through the update (each epoch again).
+PPO_COUNTS = {"model_rows": PPO_BOARDS * (PPO_STEPS + 1),
+              "update_rows": PPO_BOARDS * PPO_STEPS * PPO_EPOCHS}
+
+
+def test_ppo_train_step_span_tree(tracing):
+    """The learner's spans: ``ppo.step`` over collect, GAE and update, each
+    rollout step's ``ppo.act`` and ``env.step`` inside ``ppo.collect`` with
+    the env step's own tree below it; the root's counts are the row
+    counters' exact increments."""
+    _ppo_iteration()
+    records = trace.records()
+    roots = [r for r in records if r.parent_id == 0]
+    assert [r.name for r in roots] == ["ppo.step"]
+    assert _tree(records, roots[0]) == PPO_TREE
+    assert roots[0].counts == PPO_COUNTS
+
+
+def test_ppo_tracing_off_records_nothing_and_still_counts():
+    trace.clear()
+    before = dict(trace.COUNTERS)
+    _ppo_iteration()
+    assert trace.records() == []
+    assert {k: trace.COUNTERS[k] - before[k] for k in PPO_COUNTS} == PPO_COUNTS
