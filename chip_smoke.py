@@ -340,6 +340,39 @@ def ring_state(device, dead=()):
         agent_y=torch.tensor([[y for _, y in ring]], **i32)), gone)
 
 
+FEATURE_EDGES = ((0, 0), (10, 0), (0, 10), (10, 10), (5, 0), (0, 5),
+                 (10, 5), (5, 10), (1, 9), (9, 1), (5, 5))
+
+
+def feature_states(device, b: int, seed: int = 0) -> dict:
+    """Games the feature kernel is held on, ``b`` boards each: fresh ones,
+    ones after 24 random steps (bombs, flames, kicks, deaths) and after 60
+    SimpleAgent steps, and the random ones with their agents set on every
+    edge and corner of the board."""
+    import torch
+
+    from pomcpp_tpu_torch.core.board_gen import random_cell_state
+    from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
+    from pomcpp_tpu_torch.engine.fused_step import rollout_chunk_plain
+    from pomcpp_tpu_torch.env.environment import env_reset
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cs = random_cell_state(b, generator=gen)
+    cs = cs._replace(agent_can_kick=torch.rand(
+        (b, 4), generator=gen, device=device) < 0.5)
+    random = rollout_chunk_plain(cs, seed, 24, "random", auto_reset=False)
+    reset = env_reset(seed, b, device=device).game
+    simple = rollout_chunk_plain(
+        reset, seed + 1, 60, "simple", auto_reset=False,
+        fsm_state=simple_fsm_state_init(b, device))[0]
+    spot = torch.arange(4 * b, device=device).reshape(b, 4) % len(FEATURE_EDGES)
+    xy = torch.tensor(FEATURE_EDGES, dtype=torch.int32, device=device)[spot]
+    edges = random._replace(agent_x=xy[..., 0].contiguous(),
+                            agent_y=xy[..., 1].contiguous())
+    return {"reset": reset, "random": random, "simple": simple,
+            "edges": edges}
+
+
 def copies(cs, n):
     """``n`` copies of a one-board state."""
     return type(cs)(*(t.expand((n,) + t.shape[1:]).contiguous() for t in cs))
@@ -459,6 +492,7 @@ KERNEL_ENTRIES = (("rollout_chunk_kernelILb1", "rollout_chunk_simple_kernel"),
                   ("fused_step_kernelILb1", "fused_env_step_kernel"),
                   ("fused_step_kernelILb0", "fused_step_kernel"),
                   ("env_merge_kernel", "env_merge_kernel"),
+                  ("ego_features_kernel", "ego_features_kernel"),
                   ("probe_elem_dense_kernel", "probe_elem_kernel (warp)"),
                   ("probe_shift_warp_kernel", "probe_shift_kernel (warp)"),
                   ("probe_shift_agents_kernel", "probe_shift_kernel (warp)"),
@@ -536,6 +570,7 @@ def phase_build():
     _ext.build()            # one nvcc per source file, started together
     lib = _ext.lib()
     _ext.probes_lib()
+    _ext.features_lib()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     # The compiler's log is kept beside each library, so a run that finds
     # them built reports the same resources as the run that built them.
@@ -1716,9 +1751,11 @@ def phase_learn_held(dev, boards=None):
     batches = {}
     for name, kernels, extra in (
         ("simple", {"rollout_chunk_simple_kernel": steps,
-                    "env_merge_kernel": steps},
+                    "env_merge_kernel": steps,
+                    "ego_features_kernel": steps + 1},
          dict(opponent="simple", learner_slots=(0,))),
-        ("selfplay", {"fused_env_step_kernel": steps}, {}),
+        ("selfplay", {"fused_env_step_kernel": steps,
+                      "ego_features_kernel": steps + 1}, {}),
     ):
         b = boards[name]
         cfg = PPOConfig(rollout_len=steps, fused_env=True,
@@ -2021,11 +2058,13 @@ def phase_learn_main(dev):
         "flagship (--batch 2048 --rollout 64 --epochs 1 --opponent simple "
         "--learner-slots 0 --fused)", flagship_cfg(), LEARN_BATCH,
         LEARN_TIMED, {"rollout_chunk_simple_kernel": LEARN_ROLLOUT,
-                      "env_merge_kernel": LEARN_ROLLOUT}, 11)
+                      "env_merge_kernel": LEARN_ROLLOUT,
+                      "ego_features_kernel": LEARN_ROLLOUT + 1}, 11)
     selfplay = learn_run(
         "shared-policy self-play (--batch 4096 --rollout 64 --epochs 2 "
         "--fused)", selfplay_cfg(), SELFPLAY_BATCH, SELFPLAY_TIMED,
-        {"fused_env_step_kernel": LEARN_ROLLOUT}, 13)
+        {"fused_env_step_kernel": LEARN_ROLLOUT,
+         "ego_features_kernel": LEARN_ROLLOUT + 1}, 13)
     torch.cuda.synchronize()
     launches = dict(_ext.LAUNCHES)
 
@@ -2295,7 +2334,8 @@ def phase_search_held(dev, boards=None):
                                   device=dev)
     got = launched_since(before)
     want = {"rollout_chunk_kernel": steps * 4 * cfg.n_sim
-            * (cfg.max_tree_depth + 1), "fused_env_step_kernel": steps}
+            * (cfg.max_tree_depth + 1), "fused_env_step_kernel": steps,
+            "ego_features_kernel": steps}
     if dev.type == "cuda" and got != want:
         raise AssertionError(f"[search] held collect launched {got}, "
                              f"expected {want}")
@@ -2601,7 +2641,8 @@ def phase_search_main(dev):
     cfg = az_cfg()
     per_iter = {"rollout_chunk_kernel": cfg.rollout_len * 4 * cfg.n_sim
                 * (cfg.max_tree_depth + 1),
-                "fused_env_step_kernel": cfg.rollout_len}
+                "fused_env_step_kernel": cfg.rollout_len,
+                "ego_features_kernel": cfg.rollout_len}
     _, unguided = az_run("unguided (train_az.py defaults, fresh net)", cfg,
                          distill_init(11), AZ_UNGUIDED_TIMED, 1, per_iter,
                          12)
@@ -2610,7 +2651,8 @@ def phase_search_main(dev):
     _, guided = az_run(f"guided (--guided --resume {AZ_CKPT}, rollout "
                        f"{AZ_GUIDED_ROLLOUT})", cfg, ts,
                        AZ_GUIDED_TIMED, 0,
-                       {"fused_env_step_kernel": cfg.rollout_len}, 14)
+                       {"fused_env_step_kernel": cfg.rollout_len,
+                        "ego_features_kernel": cfg.rollout_len}, 14)
 
     trained = restore_checkpoint(AZ_CKPT, ppo_init(0, PPOConfig())).model
     fresh = ppo_init(0, PPOConfig()).model

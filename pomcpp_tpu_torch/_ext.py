@@ -35,6 +35,7 @@ LIBRARIES = {
     "kernels": ("fused_step.cu", ("common.cuh", "step_warp.cuh",
                                   "fsm_warp.cuh", "env_warp.cuh")),
     "probes": ("probes.cu", ("probe_warp.cuh",)),
+    "features": ("features.cu", ("common.cuh",)),
 }
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ext"
 NVCC_FLAGS = (
@@ -45,7 +46,8 @@ KERNELS = ("fused_step_kernel", "fused_env_step_kernel", "env_merge_kernel",
            "rollout_chunk_kernel", "rollout_chunk_simple_kernel",
            "rollout_chunk_clocked_kernel", "rollout_chunk_clocked_simple_kernel",
            "fsm_act_kernel", "probe_elem_kernel", "probe_shift_kernel",
-           "probe_reduce_kernel", "probe_dot_kernel", "probe_dot_tc_kernel")
+           "probe_reduce_kernel", "probe_dot_kernel", "probe_dot_tc_kernel",
+           "ego_features_kernel")
 
 LAUNCHES = trace.LAUNCHES
 LAUNCHES.update(dict.fromkeys(KERNELS, 0))
@@ -144,6 +146,14 @@ class FsmView(ctypes.Structure):
     _fields_ = [("f", ctypes.c_void_p * 10)]
 
 
+class FeatureView(ctypes.Structure):
+    """Device pointers of the arrays the features read (csrc
+    ``feat::FeatureView``): five planes, five int32 agent fields, then
+    ``agent_can_kick`` as bool bytes."""
+
+    _fields_ = [("f", ctypes.c_void_p * 11)]
+
+
 def bind_kernels(handle: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of ``fused_step.cu``."""
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
@@ -208,9 +218,26 @@ def probes_lib() -> ctypes.CDLL:
     return bind_probes(handle) if fresh else handle
 
 
+def bind_features(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of ``features.cu``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    handle.pomcpp_ego_features.argtypes = [FeatureView, p, i, i, i, i, p]
+    handle.pomcpp_ego_features.restype = i
+    handle.pomcpp_features_error_string.argtypes = [i]
+    handle.pomcpp_features_error_string.restype = ctypes.c_char_p
+    return handle
+
+
+def features_lib() -> ctypes.CDLL:
+    """The loaded feature kernel (``features.cu``), built on first call."""
+    handle, fresh = _load("features")
+    return bind_features(handle) if fresh else handle
+
+
 def check(err: int, error_string) -> None:
     """Raise if a launcher reported a CUDA error; ``error_string`` is the
-    ``pomcpp_error_string`` / ``pomcpp_probes_error_string`` of the library
+    ``pomcpp_error_string`` / ``pomcpp_probes_error_string`` /
+    ``pomcpp_features_error_string`` of the library
     that launched."""
     if err != 0:
         raise RuntimeError(
@@ -220,7 +247,7 @@ def check(err: int, error_string) -> None:
 # The pointer arrays of the views as ``struct`` layouts: a view built from a
 # list of pointers is one copy of packed bytes.
 _PACKED = {cls: struct.Struct(f"{cls._fields_[0][1]._length_}P")
-           for cls in (StateView, GameView, EnvView, FsmView)}
+           for cls in (StateView, GameView, EnvView, FsmView, FeatureView)}
 
 
 def view(cls, ptrs):

@@ -35,11 +35,11 @@ from ..device import resolve_device
 from ..env.environment import EnvState, _env_to_device, env_step_auto_reset_batch
 from ..env.observation import DEFAULT_VIEW_RANGE
 from ..models.actor_critic import N_FEATURES
+from ..models.features import ego_features
 from ..search import N_MOVES, mcts_moves_chunk, mcts_moves_net, true_div
 from .ppo import (
     PPOConfig,
     TrainState,
-    _features,
     _model_device,
     clip_by_global_norm_,
     ppo_init,
@@ -75,8 +75,7 @@ def distill_init(seed: int, cfg: DistillConfig = DistillConfig(),
 
 def _all_agent_feats(game) -> torch.Tensor:
     """bf16 [B, 4, F] flat features of every agent of every board."""
-    feats = _features(game, tuple(range(AGENT_COUNT)), DEFAULT_VIEW_RANGE)
-    return feats.reshape(feats.shape[0], AGENT_COUNT, -1)
+    return ego_features(game, tuple(range(AGENT_COUNT)), DEFAULT_VIEW_RANGE)
 
 
 def _plan(game, cfg: DistillConfig, gen, model, draws, device):

@@ -12,11 +12,13 @@ Tracing (``trace``, off by default).  ``ppo_train_step`` is the span
 ``ppo.step``, with ``ppo.collect`` (``collect_rollout_batch``; each
 ``env.step`` of the rollout nests in it), ``ppo.act`` (each call of
 ``_policy_slots``: features, forward, draw and ``logp``; the bootstrap
-value's included), ``ppo.gae`` and ``ppo.update`` inside it; each of these
-functions called alone is a root.  The counters ``COUNTERS["model_rows"]``
-(rows through the forward in ``_policy_slots``) and
-``COUNTERS["update_rows"]`` (rows through the update's forward and
-backward, each epoch again) are always on and counted from shapes.
+value's included), ``ppo.gae`` and ``ppo.update`` inside it, and
+``ppo.features`` (the features, ``models.features.ego_features``) inside
+each ``ppo.act``; each of these functions called alone is a root.  The
+counters ``COUNTERS["model_rows"]`` (rows through the forward in
+``_policy_slots``) and ``COUNTERS["update_rows"]`` (rows through the
+update's forward and backward, each epoch again) are always on and counted
+from shapes.
 
 The iteration's records.  ``ppo_train_step(..., record=d)`` fills the dict
 ``d`` with references to what the iteration made -- ``traj``, ``adv``,
@@ -89,8 +91,9 @@ from ..env.environment import (
     env_step_auto_reset_batch,
     env_step_auto_reset_batch_fsm,
 )
-from ..env.observation import DEFAULT_VIEW_RANGE, observe_ego
-from ..models.actor_critic import N_FEATURES, ActorCritic, obs_to_features
+from ..env.observation import DEFAULT_VIEW_RANGE
+from ..models.actor_critic import N_FEATURES, ActorCritic
+from ..models.features import ego_features
 from ..parallel.mesh import all_reduce_sum, fold_seed
 
 
@@ -189,18 +192,6 @@ def ppo_init(seed: int, cfg: PPOConfig = PPOConfig(),
     )
 
 
-def _features(game, slots, view_range: int) -> torch.Tensor:
-    """bf16 features [B, L, H, W, C] of the agents ``slots``."""
-    if len(slots) == 1:
-        obs = observe_ego(game, slots[0], view_range=view_range)
-        return obs_to_features(obs, view_range)[:, None]
-    feats = obs_to_features(observe_ego(game, None, view_range=view_range),
-                            view_range)
-    if tuple(slots) == tuple(range(AGENT_COUNT)):
-        return feats
-    return feats[:, list(slots)]
-
-
 def sample_categorical(gen: torch.Generator, logits: torch.Tensor,
                        uniforms=None):
     """One draw per row of ``logits`` by Gumbel-max, as
@@ -218,14 +209,17 @@ def sample_categorical(gen: torch.Generator, logits: torch.Tensor,
 
 @_spanned("ppo.act")
 def _policy_slots(model, game, gen, slots, view_range: int = DEFAULT_VIEW_RANGE,
-                  moves=None):
+                  moves=None, out=None):
     """Sample net moves for the agents ``slots`` of every board ->
     ``(moves i32[B, L], logp, value, feats bf16[B, L, H*W*C])``;
-    ``moves`` (i32[B, L]) replaces the draw."""
-    feats = _features(game, slots, view_range)
+    ``moves`` (i32[B, L]) replaces the draw; the features are written into
+    ``out`` when it is given (the rollout's trajectory row)."""
+    span = trace.ON and trace.begin("ppo.features")
+    feats = ego_features(game, slots, view_range, out)
+    if span:
+        trace.end(span)
     b, n = feats.shape[:2]
     trace.COUNTERS["model_rows"] += b * n
-    feats = feats.reshape(b, n, -1)
     logits, value = model(feats.reshape(b * n, -1))
     logits = logits.reshape(b, n, -1)
     if moves is None:
@@ -390,9 +384,9 @@ def collect_rollout_batch(model, es: EnvState, cfg: PPOConfig, gen,
                   randomize_positions=cfg.randomize_positions, device=dev)
     for t in range(steps):
         game = es.game
-        moves_l, logp, value, feats = _policy_slots(
+        moves_l, logp, value, _ = _policy_slots(
             model, game, gen, slots, cfg.view_range,
-            None if moves is None else moves[t])
+            None if moves is None else moves[t], out=traj.feats[t])
         alive_before = ~game.agent_dead
         if cfg.opponent:
             if scripted and not in_kernel:
@@ -433,7 +427,6 @@ def collect_rollout_batch(model, es: EnvState, cfg: PPOConfig, gen,
             drew = (new_done & (es2.winner[:, None] < 0) & alive_before
                     & ~es2.game.agent_dead)
             reward = reward - cfg.draw_penalty * drew.float()
-        traj.feats[t] = feats
         traj.move[t] = mv.index_select(1, sl)
         traj.logp[t] = logp
         traj.value[t] = value

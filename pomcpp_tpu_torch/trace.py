@@ -12,12 +12,14 @@ carry them are ``env.environment.env_step_auto_reset_batch_fsm``,
     merge       -> merge.args, merge.launch
     ppo.step    -> ppo.collect, ppo.gae, ppo.update
     ppo.collect -> ppo.act, env.step (each rollout step), ppo.act (bootstrap)
+    ppo.act     -> ppo.features
 
 ``ppo.act`` is ``_policy_slots`` (features, the forward, the draw,
-``logp``); ``ppo.update`` runs from the update's call until its last
-optimizer step is enqueued, before the device has done it.  Each of the
-learner's functions called alone is a root, and ``env.step`` is a root
-when the learner does not call it.
+``logp``), ``ppo.features`` its features (``models.features.ego_features``:
+on the card one launch of ``ego_features_kernel``); ``ppo.update`` runs
+from the update's call until its last optimizer step is enqueued, before
+the device has done it.  Each of the learner's functions called alone is a
+root, and ``env.step`` is a root when the learner does not call it.
 
 ``chunk.args`` holds the argument checks, the conversions and the
 marshalling of the launcher's arguments, ``chunk.launch`` the ctypes
@@ -53,6 +55,9 @@ Counters, always on:
 * ``COUNTERS["model_rows"]``: rows through the actor-critic's forward in
   the learner's collect (``learner.ppo._policy_slots``, the bootstrap
   value's included), counted on the host from shapes;
+* ``COUNTERS["feature_rows"]``: feature rows the feature kernel built
+  (``models.features._ego_features_launch``); equal to ``model_rows`` when
+  every act of a collect took the kernel;
 * ``COUNTERS["update_rows"]``: rows through the forward and backward of
   ``learner.ppo.ppo_update``, each epoch counted again.
 
@@ -88,7 +93,7 @@ PHASES = ("draw", "danger", "bfs", "flee", "decide", "move", "bombs", "blast",
 ON = False
 LAUNCHES: dict = {}
 COUNTERS = {"host_reads": 0, "wrapper_ops": 0, "arrays_as_is": 0,
-            "model_rows": 0, "update_rows": 0}
+            "model_rows": 0, "feature_rows": 0, "update_rows": 0}
 
 
 class Span(NamedTuple):

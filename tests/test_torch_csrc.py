@@ -21,12 +21,19 @@ Three kinds of test:
   ``any_plane`` (which needs the CTA) against its plain version, bit for
   bit, and each pattern's shuffles and warp reductions per lane counted
   against the exchange its design claims;
+* the feature kernel's own source (``features.cu``, the actor-critic's
+  egocentric features in bf16) against ``ego_features_plain`` bit for bit,
+  on fresh and played games, into new blocks and trajectory rows at every
+  alignment; its float32 scalars against both the CPU's division and the
+  card's reciprocal product; and the PPO collector with the source in the
+  plain version's place;
 * the emulator itself: it must report an intrinsic reached by only part of
   a warp instead of hanging or passing, and its signed reductions and
   float shuffles must be the card's.
 """
 
 import ctypes
+import functools
 import re
 import shutil
 import subprocess
@@ -46,6 +53,12 @@ from pomcpp_tpu_torch.engine.fsm import (
     simple_fsm_state_init,
 )
 from pomcpp_tpu_torch.env import environment as env
+from pomcpp_tpu_torch.learner import ppo as tppo
+from pomcpp_tpu_torch.models import features
+from pomcpp_tpu_torch.models.features import (
+    _ego_features_launch,
+    ego_features_plain,
+)
 
 CSRC = _ext.CSRC
 WARP_HEADERS = ("step_warp.cuh", "fsm_warp.cuh", "env_warp.cuh",
@@ -1236,3 +1249,197 @@ def test_probe_warp_header_has_no_asm_and_maps_elements_densely():
     assert "const long long n = (long long)n_rows * width;" in code
     assert "(n + (long long)NT * EPT - 1) / ((long long)NT * EPT)" in code
     assert '#include "probe_warp.cuh"' in (CSRC / "probes.cu").read_text()
+
+
+# --- the feature kernel's source on the CPU -------------------------------------
+
+FEATURE_SLOTS = [(0,), (1, 3), (0, 1, 2, 3)]
+
+
+@pytest.fixture(scope="module")
+def features_lib(tmp_path_factory):
+    return _ext.bind_features(_host_build(
+        tmp_path_factory, CSRC / "features.cu", "libfeatures.so"))
+
+
+@pytest.fixture(scope="module")
+def feature_states():
+    return chip_smoke.feature_states(torch.device("cpu"), 37, 3)
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+def test_feature_kernel_stages_a_warp_and_stores_whole_vectors():
+    """One cell a lane, staged in the warp's shared memory behind a
+    ``__syncwarp`` (no CTA barrier), then 16-byte stores."""
+    code = _strip_comments((CSRC / "features.cu").read_text())
+    assert not CTA_BARRIER.search(code)
+    assert code.count("__syncwarp()") == 1
+    assert "reinterpret_cast<uint4*>(dst)[q] = vec;" in code
+
+
+@pytest.mark.parametrize("view_range", [4, 2])
+@pytest.mark.parametrize("slots", FEATURE_SLOTS, ids=str)
+@pytest.mark.parametrize("state", ["reset", "random", "simple", "edges"])
+def test_feature_source_matches_plain(features_lib, feature_states, state,
+                                      slots, view_range):
+    """The kernel's output equals ``obs_to_features(observe_ego(...))`` bit
+    for bit, into a new block and into a trajectory row of a larger buffer
+    (37 boards: the row starts off a 16-byte boundary), whose other rows
+    it leaves alone."""
+    game = feature_states[state]
+    want = ego_features_plain(game, slots, view_range)
+    got = _ego_features_launch(features_lib, None, game, slots, view_range)
+    assert torch.equal(_bits(got), _bits(want))
+    traj = torch.full((3,) + tuple(want.shape), -7.0, dtype=torch.bfloat16)
+    row = _ego_features_launch(features_lib, None, game, slots, view_range,
+                               out=traj[1])
+    assert row.data_ptr() == traj[1].data_ptr() and row.data_ptr() % 16
+    assert torch.equal(_bits(traj[1]), _bits(want))
+    assert (traj[0] == -7).all() and (traj[2] == -7).all()
+
+
+def test_feature_source_on_every_alignment_and_a_tiny_batch(features_lib,
+                                                           feature_states):
+    """Rows written from each of the eight bf16 offsets to a 16-byte
+    boundary, one board and a board count that is no multiple of 8."""
+    game = feature_states["simple"]
+    for b in (1, 3):
+        part = type(game)(*(t[:b].contiguous() for t in game))
+        want = ego_features_plain(part, (2, 0), 4)
+        flat = torch.zeros(want.numel() + 16, dtype=torch.bfloat16)
+        for off in range(8):
+            out = flat[off:off + want.numel()].view(want.shape)
+            _ego_features_launch(features_lib, None, part, (2, 0), 4, out=out)
+            assert torch.equal(_bits(out), _bits(want)), (b, off)
+
+
+def test_feature_source_divides_as_the_card_and_the_cpu(features_lib):
+    """For every integer 0-1023 and each divisor (10: the bomb timer and
+    strength, own strength and position; 4: bomb direction, flame timer; 5:
+    max bombs and bomb count) the kernel's bf16 equals both the exact
+    float32 quotient rounded to bf16 (the CPU's plain path) and the product
+    with the float32 reciprocal rounded to bf16 (the card's)."""
+    v = torch.arange(1024, dtype=torch.int32)
+
+    def rounded(d):
+        exact = (v.float() / torch.tensor(float(d))).to(torch.bfloat16)
+        recip = (v.float() * (1.0 / torch.tensor(float(d)))).to(torch.bfloat16)
+        assert torch.equal(_bits(exact), _bits(recip))
+        return _bits(exact)
+
+    # The planes: 9 boards of 121 cells hold 0-1088; a window of range 10
+    # around (5, 5) covers the whole board.
+    g = empty_cell_state(9, "cpu")
+    vals = torch.arange(9 * 121, dtype=torch.int32).reshape(9, 121) % 1024
+    five = torch.full((9, 4), 5, dtype=torch.int32)
+    g = g._replace(bomb_timer=vals, bomb_strength=vals, bomb_dir=vals,
+                   flame_timer=vals, agent_x=five, agent_y=five)
+    out = _ego_features_launch(features_lib, None, g, (0,), 10)
+    cells = out.reshape(9, 21, 21, 23)[:, 5:16, 5:16].reshape(9 * 121, 23)
+    first = torch.arange(1024)              # the cell holding each value
+    for ch, d in ((13, 10), (14, 10), (15, 4), (16, 4)):
+        assert torch.equal(_bits(cells[first, ch]), rounded(d)), ch
+    # The six own stats: 256 boards x 4 agents hold 0-1023 each (a window
+    # of range 0, off the board for most of them).
+    s = v.reshape(256, 4)
+    g = empty_cell_state(256, "cpu")._replace(
+        agent_x=s, agent_y=s, agent_max_bombs=s, agent_bomb_count=s,
+        agent_strength=s)
+    own = _ego_features_launch(features_lib, None, g, (0, 1, 2, 3), 0)
+    own = own.reshape(1024, 23)
+    for ch, d in ((17, 5), (18, 5), (19, 10), (21, 10), (22, 10)):
+        assert torch.equal(_bits(own[:, ch]), rounded(d)), ch
+
+
+def test_feature_marshalling_calls_no_operator_but_the_allocation(
+        features_lib, feature_states):
+    """On the env step's arrays the path dispatches no PyTorch operator
+    that could launch work (``chip_smoke.device_ops``; the output's
+    ``empty`` is an allocation), with ``out`` or without; it counts its rows
+    and, on the host build, no launch."""
+    game = feature_states["random"]
+    out = torch.empty((37, 2, 1863), dtype=torch.bfloat16)
+    _ext.reset_launches()
+    before = trace.COUNTERS["feature_rows"]
+    assert chip_smoke.device_ops(lambda: _ego_features_launch(
+        features_lib, None, game, (0, 3), 4, out=out)) == []
+    assert chip_smoke.device_ops(lambda: _ego_features_launch(
+        features_lib, None, game, (1,), 4)) == []
+    assert trace.COUNTERS["feature_rows"] - before == 37 * 3
+    assert not any(_ext.LAUNCHES.values())
+
+
+def test_feature_path_refuses_what_it_does_not_take(features_lib,
+                                                    feature_states):
+    game = feature_states["reset"]
+    run = functools.partial(_ego_features_launch, features_lib, None)
+    for bad, match in [
+            (game._replace(board=game.board.long()), "board must be"),
+            (game._replace(agent_can_kick=game.agent_can_kick.int()),
+             "agent_can_kick must be"),
+            (game._replace(agent_x=game.agent_x.t().contiguous().t()),
+             "agent_x must be"),
+            (game._replace(bomb_dir=game.bomb_dir[:, :120]), "bomb_dir must")]:
+        with pytest.raises(ValueError, match=match):
+            run(bad, (0,), 4)
+    traj = torch.empty((37, 2, 1863), dtype=torch.bfloat16)
+    for out in (traj[:, :1], traj.float(), traj[:36]):
+        with pytest.raises(ValueError, match="out must be"):
+            run(game, (0,), 4, out=out)
+    for slots in ((), (4,), (0, -1), (0,) * 17):
+        with pytest.raises(ValueError, match="slots must name"):
+            run(game, slots, 4)
+    with pytest.raises(ValueError, match="view_range"):
+        run(game, (0,), 65)
+
+
+@pytest.mark.parametrize("case", ["vs_simple", "selfplay", "frozen"])
+def test_collect_through_the_feature_source_matches_plain(
+        features_lib, monkeypatch, case):
+    """``collect_rollout_batch`` with the kernel's source in the features'
+    place writes every trajectory row in place and returns what the plain
+    path returns, bit for bit, with both generators in the same state
+    after; every act of it took the kernel (``feature_rows`` equals
+    ``model_rows``), the bootstrap's and the frozen net's included."""
+    cfgs = {
+        "vs_simple": tppo.PPOConfig(rollout_len=5, opponent="simple",
+                                    learner_slots=(0,), fused_env=True),
+        "selfplay": tppo.PPOConfig(rollout_len=5, fused_env=True),
+        "frozen": tppo.PPOConfig(rollout_len=5, opponent="frozen+simple",
+                                 learner_slots=(0, 2), frozen_slots=(1,),
+                                 fused_env=True),
+    }
+    cfg = cfgs[case]
+    b = 9
+
+    def collect(kernel):
+        if kernel:
+            monkeypatch.setattr(features, "_card_launcher",
+                                lambda device: (features_lib, None))
+        else:
+            monkeypatch.setattr(features, "_card_launcher", lambda device: None)
+        ts = tppo.ppo_init(3, cfg, device="cpu")
+        frozen = tppo.ppo_init(4, cfg, device="cpu").model
+        es = env.env_reset(6, b, device="cpu")
+        before = dict(trace.COUNTERS)
+        out = tppo.collect_rollout_batch(
+            ts.model, es, cfg, ts.gen, frozen_model=frozen,
+            host_gen=ts.host_gen, device="cpu")
+        counts = {k: trace.COUNTERS[k] - before[k]
+                  for k in ("feature_rows", "model_rows")}
+        return out, counts, ts.gen.get_state(), ts.host_gen.get_state()
+
+    (k_out, k_counts, k_gen, k_host) = collect(True)
+    (p_out, p_counts, p_gen, p_host) = collect(False)
+    assert k_counts["feature_rows"] == k_counts["model_rows"] > 0
+    assert p_counts["feature_rows"] == 0
+    assert torch.equal(k_gen, p_gen) and torch.equal(k_host, p_host)
+    (k_es, k_traj, k_boot), (p_es, p_traj, p_boot) = k_out[:3], p_out[:3]
+    for f, kt, pt in zip(tppo.Transition._fields, k_traj, p_traj):
+        assert torch.equal(kt.view(torch.uint8), pt.view(torch.uint8)), f
+    assert torch.equal(k_boot, p_boot)
+    assert not diff_fields(k_es.game, p_es.game, skip=())
+    assert all(torch.equal(a, c) for a, c in zip(k_es[1:], p_es[1:]))

@@ -26,6 +26,7 @@ from pomcpp_tpu_torch.engine.fused_step import (
 )
 from pomcpp_tpu_torch import probes
 from pomcpp_tpu_torch.env import environment as env
+from pomcpp_tpu_torch.models import features
 
 pytestmark = pytest.mark.gpu
 
@@ -295,6 +296,117 @@ def test_learner_collect_and_update_match_plain(cuda):
     err = chip_smoke.phase_learn_held(cuda, {"simple": 256, "selfplay": 256})
     assert all(err[k] <= chip_smoke.LEARN_TOL[k] for k in err)
 
+
+
+FEATURE_SLOTS = [(0,), (1, 3), (0, 1, 2, 3)]
+
+
+@pytest.fixture(scope="module")
+def feature_states():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return chip_smoke.feature_states(torch.device("cuda"), 2048, 11)
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+@pytest.mark.parametrize("view_range", [4, 2])
+@pytest.mark.parametrize("slots", FEATURE_SLOTS, ids=str)
+@pytest.mark.parametrize("state", ["reset", "random", "simple", "edges"])
+def test_feature_kernel_matches_plain(cuda, feature_states, state, slots,
+                                      view_range):
+    """``ego_features_kernel`` at 2,048 boards equals the plain version on
+    the card bit for bit, into a new block, into a trajectory row and into
+    a row that starts off a 16-byte boundary (2,045 boards)."""
+    game = feature_states[state]
+    want = features.ego_features_plain(game, slots, view_range)
+    _ext.reset_launches()
+    got = features.ego_features(game, slots, view_range)
+    assert _ext.LAUNCHES["ego_features_kernel"] == 1
+    assert torch.equal(_bits(got), _bits(want))
+    traj = torch.full((3,) + tuple(want.shape), -7.0, dtype=torch.bfloat16,
+                      device=cuda)
+    features.ego_features(game, slots, view_range, out=traj[1])
+    assert torch.equal(_bits(traj[1]), _bits(want))
+    assert (traj[0] == -7).all() and (traj[2] == -7).all()
+    part = type(game)(*(t[:2045].contiguous() for t in game))
+    traj = torch.empty((3, 2045) + tuple(want.shape[1:]), dtype=torch.bfloat16,
+                       device=cuda)
+    assert traj[1].data_ptr() % 16
+    features.ego_features(part, slots, view_range, out=traj[1])
+    assert torch.equal(_bits(traj[1]), _bits(want[:2045]))
+
+
+def test_feature_kernel_divides_as_the_plain_card_path(cuda):
+    """The four scalar planes and the six own stats for every integer
+    0-1023 equal the card's plain path (``int32 / d`` as a product with the
+    float32 reciprocal, rounded to bf16)."""
+    from pomcpp_tpu_torch.engine.cellular import empty_cell_state
+
+    s = torch.arange(1024, dtype=torch.int32, device=cuda).reshape(256, 4)
+    v = torch.arange(256 * 121, dtype=torch.int32, device=cuda)
+    g = empty_cell_state(256, cuda)._replace(
+        bomb_timer=(v % 1024).reshape(256, 121),
+        bomb_strength=((v + 7) % 1024).reshape(256, 121),
+        bomb_dir=((v + 13) % 1024).reshape(256, 121),
+        flame_timer=((v + 29) % 1024).reshape(256, 121),
+        agent_x=s % 11, agent_y=(s // 11) % 11, agent_max_bombs=s,
+        agent_bomb_count=s.flip(0), agent_strength=(s + 500) % 1024)
+    for r in (4, 10):
+        want = features.ego_features_plain(g, (0, 1, 2, 3), r)
+        assert torch.equal(_bits(features.ego_features(g, (0, 1, 2, 3), r)),
+                           _bits(want))
+
+
+def _vs_simple_cfg(rollout_len):
+    from pomcpp_tpu_torch.learner import ppo as tppo
+
+    return tppo.PPOConfig(rollout_len=rollout_len, epochs=1, minibatches=2,
+                          opponent="simple", learner_slots=(0,),
+                          fused_env=True, max_episode_steps=800)
+
+
+def test_collect_takes_the_feature_kernel_in_every_act(cuda):
+    """Every act of a collect on the card takes the kernel: its rows equal
+    the forward's (``feature_rows == model_rows``) and it launches once an
+    act, the bootstrap's included."""
+    from pomcpp_tpu_torch.learner import ppo as tppo
+
+    cfg = _vs_simple_cfg(8)
+    ts = tppo.ppo_init(5, cfg, device=cuda)
+    es = env.env_reset(5, 256, device=cuda)
+    _ext.reset_launches()
+    before = dict(trace.COUNTERS)
+    tppo.collect_rollout_batch(ts.model, es, cfg, ts.gen, host_gen=ts.host_gen,
+                               device=cuda)
+    rows = {k: trace.COUNTERS[k] - before[k]
+            for k in ("feature_rows", "model_rows")}
+    assert rows["feature_rows"] == rows["model_rows"] == 9 * 256
+    assert _ext.LAUNCHES["ego_features_kernel"] == 9
+
+
+def test_iteration_features_equal_the_plain_path(cuda, monkeypatch):
+    """A whole PPO iteration at the cell's size (2,048 boards x 64 steps,
+    against SimpleAgents) writes the same trajectory features as the plain
+    path on the card from one seed, bit for bit."""
+    from pomcpp_tpu_torch.learner import ppo as tppo
+
+    cfg = _vs_simple_cfg(64)
+
+    def iteration(kernel):
+        if not kernel:
+            monkeypatch.setattr(features, "_card_launcher", lambda d: None)
+        ts = tppo.ppo_init(7, cfg, device=cuda)
+        es = env.env_reset(7, 2048, device=cuda)
+        rec = {}
+        tppo.ppo_train_step(ts, es, cfg, device=cuda, record=rec)
+        return rec["traj"]
+
+    got, want = iteration(True), iteration(False)
+    assert torch.equal(_bits(got.feats), _bits(want.feats))
+    assert torch.equal(got.move, want.move)
 
 
 def test_search_distill_and_arena_match_plain(cuda):

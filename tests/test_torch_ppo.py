@@ -266,6 +266,28 @@ def test_collect_rollout_batch_matches_jax(monkeypatch, start_boards, case):
     assert int((tr.reward > 0).sum()) >= 1 and int((tr.reward < 0).sum()) >= 1
 
 
+@pytest.mark.parametrize("slots", [(0,), (1, 3), (0, 1, 2, 3), (2, 0, 2)],
+                         ids=str)
+def test_features_are_the_plain_crop_of_each_slot(start_boards, slots):
+    """On CPU tensors the learner's features are the plain version: each
+    slot's ``obs_to_features(observe_ego(game, slot))`` flattened, bit for
+    bit, and ``out`` (a trajectory row) receives them in place."""
+    from pomcpp_tpu_torch.env.observation import observe_ego
+    from pomcpp_tpu_torch.models.actor_critic import obs_to_features
+
+    game = _to_port(start_boards).game
+    want = torch.stack([obs_to_features(observe_ego(game, s)).reshape(B, -1)
+                        for s in slots], 1)
+    got = tppo.ego_features(game, slots, 4)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    traj = torch.zeros((2,) + tuple(want.shape), dtype=torch.bfloat16)
+    row = traj[1]
+    assert tppo.ego_features(game, slots, 4, out=row) is row
+    assert torch.equal(traj[1].view(torch.int16), want.view(torch.int16))
+    assert not traj[0].any()
+
+
 def test_compute_gae_matches_jax():
     cfg_j, cfg_t = jppo.PPOConfig(), tppo.PPOConfig()
     rng = np.random.RandomState(4)

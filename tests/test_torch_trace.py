@@ -273,7 +273,7 @@ def test_records_are_bounded_and_an_error_closes_its_spans(tracing,
 PPO_STEPS, PPO_BOARDS, PPO_EPOCHS = 3, 4, 2
 PPO_TREE = {"ppo.step": ["ppo.collect", "ppo.gae", "ppo.update"],
             "ppo.collect": ["ppo.act", "env.step"] * PPO_STEPS + ["ppo.act"],
-            **CPU_TREE}
+            "ppo.act": ["ppo.features"], **CPU_TREE}
 
 
 def _ppo_iteration():
@@ -298,15 +298,40 @@ PPO_COUNTS = {"model_rows": PPO_BOARDS * (PPO_STEPS + 1),
 
 def test_ppo_train_step_span_tree(tracing):
     """The learner's spans: ``ppo.step`` over collect, GAE and update, each
-    rollout step's ``ppo.act`` and ``env.step`` inside ``ppo.collect`` with
-    the env step's own tree below it; the root's counts are the row
-    counters' exact increments."""
+    rollout step's ``ppo.act`` (its features in ``ppo.features``) and
+    ``env.step`` inside ``ppo.collect`` with the env step's own tree below
+    it; the root's counts are the row counters' exact increments."""
     _ppo_iteration()
     records = trace.records()
     roots = [r for r in records if r.parent_id == 0]
     assert [r.name for r in roots] == ["ppo.step"]
     assert _tree(records, roots[0]) == PPO_TREE
     assert roots[0].counts == PPO_COUNTS
+
+
+@pytest.fixture(scope="module")
+def features_host_lib(tmp_path_factory):
+    return _ext.bind_features(_host_build(
+        tmp_path_factory, _ext.CSRC / "features.cu", "libfeatures_trace.so"))
+
+
+def test_ppo_step_counts_every_act_as_feature_rows_on_the_card_path(
+        tracing, card_path, features_host_lib, monkeypatch):
+    """With the card's launchers in place (the host builds), every act's
+    features take the feature kernel: the ``ppo.step`` root counts as many
+    feature rows as rows through the forward, and ``ppo.features`` sits in
+    each ``ppo.act``."""
+    from pomcpp_tpu_torch.models import features
+
+    monkeypatch.setattr(features, "_card_launcher",
+                        lambda device: (features_host_lib, None))
+    _ppo_iteration()
+    records = trace.records()
+    roots = [r for r in records if r.parent_id == 0]
+    assert [r.name for r in roots] == ["ppo.step"]
+    assert roots[0].counts["feature_rows"] == roots[0].counts["model_rows"] \
+        == PPO_COUNTS["model_rows"]
+    assert _tree(records, roots[0]) == {**PPO_TREE, **CARD_TREE}
 
 
 def test_ppo_tracing_off_records_nothing_and_still_counts():
