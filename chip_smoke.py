@@ -1345,6 +1345,7 @@ def phase_env_timing(es):
     the plain version on the card."""
     import torch
 
+    from pomcpp_tpu_torch import launch
     from pomcpp_tpu_torch.device import HBM_BYTES_PER_S
     from pomcpp_tpu_torch.engine.fused_step import fused_step_plain
     from pomcpp_tpu_torch.env import environment as env
@@ -1365,13 +1366,18 @@ def phase_env_timing(es):
     # The merge writes its stepped game in place: it gets a copy, which every
     # timed call writes again with the same fresh games.
     mine = type(game)(*(t.clone() for t in game))
-    card = env._env_launch_cuda(es, fresh=None, game=mine, **kw)
+
+    def merge():
+        merged, rest = launch.env_merge(*launch.card(es.done.device), es[1:],
+                                        mine, None, **kw)
+        return env.EnvState(merged, *rest)
+
+    card = merge()
     with Timer() as tp:
         plain = env._merge_done_and_reset(es, game, fresh=None, **kw)
     expect_env_equal("env merge at full width", card, plain)
-    out["env_merge"] = (device_ms(lambda: env._env_launch_cuda(
-        es, fresh=None, game=mine, **kw)), tp.ms(),
-        env_max_abs_err(card, plain))
+    out["env_merge"] = (device_ms(merge), tp.ms(),
+                        env_max_abs_err(card, plain))
     done = int(es.done.sum())
     for name, (ms, plain_ms, _) in out.items():
         log(f"[timing] {name} {BOARDS} boards ({done} done): "

@@ -11,10 +11,12 @@ library that is loaded even when an earlier run built it.  Nothing here
 runs at import: the CPU-only install (no ``nvcc``, no card) imports the
 package freely.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made (the dict is
-``trace.LAUNCHES``); a run resets it with ``reset_launches()`` to show which
-kernels a path went through.  The chunk kernel's clocked instance, which
-``trace`` samples, counts under its own names.
+``LAUNCHES`` counts, per kernel, the launches made on the card (the dict is
+``trace.LAUNCHES``; for the engine and feature libraries ``launch`` counts
+them, the one module that calls their entries); a run resets it with
+``reset_launches()`` to show which kernels a path went through.  The chunk
+kernel's clocked instance, which ``trace`` samples, counts under its own
+names.
 """
 
 from __future__ import annotations
@@ -261,29 +263,3 @@ def row_ptrs(t) -> list:
     without making the rows."""
     base, step = t.data_ptr(), t.stride(0) * t.element_size()
     return [base + k * step for k in range(t.shape[0])]
-
-
-def _view(cls, arrays):
-    return view(cls, [t.data_ptr() for t in arrays])
-
-
-def state_view(arrays) -> StateView:
-    """StateView over 14 contiguous int32 CUDA tensors (kept alive by the
-    caller for the duration of the launch)."""
-    return _view(StateView, arrays)
-
-
-def game_view(arrays) -> GameView:
-    """GameView over a CellState's 16 contiguous arrays (``None``: all
-    null), as ``state_view``."""
-    return GameView() if arrays is None else _view(GameView, arrays)
-
-
-def env_view(arrays) -> EnvView:
-    """EnvView over an EnvState's done, winner, is_draw and key."""
-    return _view(EnvView, arrays)
-
-
-def fsm_view(arrays) -> FsmView:
-    """FsmView over the ten FSM state arrays, as ``state_view``."""
-    return _view(FsmView, arrays)

@@ -9,12 +9,12 @@ ten-array ``FsmState`` (``agents/simple.py``); one act for B boards:
   written to the kernel layout;
 * ``fsm_act(cs, fsm_state, rand, device=None)`` -- launches
   ``fsm_act_kernel`` (``csrc/fused_step.cu``: ``wl::fsm_act`` of
-  ``csrc/fsm_warp.cuh``, one board per warp) on a CUDA tensor and adds one
-  to ``_ext.LAUNCHES["fsm_act_kernel"]``; on a CPU tensor it runs the plain
-  version.  It is the one-act test bed of the device code that the simple
-  chunk kernel runs every step.  The kernel reads the ``CellState`` in its
-  own dtypes (bools as one byte), so for a state in those dtypes the wrapper
-  launches the kernel and nothing else.
+  ``csrc/fsm_warp.cuh``, one board per warp) through ``launch.fsm_act`` on
+  a CUDA device, which adds one to ``_ext.LAUNCHES["fsm_act_kernel"]``; on
+  the CPU it runs the plain version.  It is the one-act test bed of the
+  device code that the simple chunk kernel runs every step.  The kernel
+  reads the ``CellState`` in its own dtypes (bools as one byte), so for a
+  state in those dtypes the wrapper launches the kernel and nothing else.
 
 Both return ``(moves, fsm_state')``: the FSM's own moves i32[B, 4] (dead
 agents' moves are not zeroed here; the chunk does that) and the next state
@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _ext, trace
+from .. import launch
 from ..agents.simple import RP_STALE, FsmState
 from ..agents.simple_cellular import simple_agent_cell_joint
 from ..convert import fsm_to_simple_state, simple_state_to_fsm
@@ -52,66 +52,18 @@ def fsm_act_plain(cs: CellState, fsm_state, rand):
     return moves, simple_state_to_fsm(asts2)
 
 
-def fsm_inputs(fsm_state, b: int, device):
-    """The ten FSM arrays as contiguous int32 tensors [b, 4] on ``device``
-    (the device of the state arrays they are launched with); a conversion
-    counts in ``trace``'s ``wrapper_ops``."""
-    arrays = []
-    for t in fsm_state:
-        a = t.to(I32).contiguous()
-        if a.device != device or a.shape != (b, AGENT_COUNT):
-            raise ValueError(f"FSM state arrays must be i32[{b}, 4] on {device}")
-        arrays.append(a)
-    trace.count_copies(fsm_state, arrays)
-    if len(arrays) != 10:
-        raise ValueError("the FSM state has ten arrays")
-    return arrays
-
-
-def _fsm_act_launch(lib, stream, cs: CellState, fsm_state, rand):
-    """Marshal the arguments and call the act launcher of ``lib``: an
-    ``nvcc`` build on the card's stream, which counts as a launch, or, in the
-    tests, the host build of the same source on CPU tensors
-    (``stream=None``), which does not."""
-    from .fused_step import game_arrays
-
-    ins = game_arrays(cs, "cpu" if stream is None else "cuda")
-    b, dev = ins[0].shape[0], ins[0].device
-    fin = fsm_inputs(fsm_state, b, dev)
-    r = rand.to(I32).contiguous()
-    trace.COUNTERS["wrapper_ops"] += r is not rand
-    rand = r
-    if rand.shape != (b, AGENT_COUNT) or rand.device != dev:
-        raise ValueError(f"rand must be i32[{b}, 4] on {dev}")
-    fout = [torch.empty_like(t) for t in fin]
-    moves = torch.empty((b, AGENT_COUNT), dtype=I32, device=dev)
-    _ext.check(lib.pomcpp_fsm_act(
-        _ext.game_view(ins), _ext.fsm_view(fin), _ext.fsm_view(fout),
-        rand.data_ptr(), moves.data_ptr(), b, stream,
-    ), lib.pomcpp_error_string)
-    if stream is not None:
-        _ext.LAUNCHES["fsm_act_kernel"] += 1
-    return moves, FsmState(*fout)
-
-
-def _fsm_act_cuda(cs: CellState, fsm_state, rand):
-    return _fsm_act_launch(_ext.lib(), torch.cuda.current_stream().cuda_stream,
-                           cs, fsm_state, rand)
-
-
 def fsm_act(cs: CellState, fsm_state, rand, device=None):
     """One SimpleAgent act for every agent of B boards.
 
     ``device=None`` runs ``fsm_act_kernel`` on the card; ``device="cpu"``
     the plain version.
     """
-    from .fused_step import _to_device
-
     device = resolve_device(device)
-    cs = _to_device(cs, device)
+    card = launch.card(device)
+    if card:
+        return launch.fsm_act(*card, cs, fsm_state, rand)
+    cs = CellState(*(t.to(device) for t in cs))
     fsm_state = FsmState(*(torch.as_tensor(t).to(device=device, dtype=I32)
                            for t in fsm_state))
-    rand = torch.as_tensor(rand).to(device=device, dtype=I32)
-    if device.type == "cpu":
-        return fsm_act_plain(cs, fsm_state, rand)
-    return _fsm_act_cuda(cs, fsm_state, rand)
+    return fsm_act_plain(cs, fsm_state,
+                         torch.as_tensor(rand).to(device=device, dtype=I32))

@@ -14,10 +14,11 @@ Counterpart of ``pomcpp_tpu.engine.pallas_step``.  Two entry points:
   rands drawn ``% 5``) policies, with the pipelined auto-reset.  Plain
   version: ``rollout_chunk_plain``.
 
-On a CUDA tensor a wrapper launches its kernel (``csrc/fused_step.cu``) and
-adds one to ``_ext.LAUNCHES``; on a CPU tensor it runs the plain version.
-There is no fallback between the two.  The simple chunk is its own
-template instantiation of the chunk kernel and has its own launch count,
+On a CUDA device an entry point launches its kernel (``csrc/fused_step.cu``)
+through ``launch.fused_step`` / ``launch.chunk``, which count it in
+``_ext.LAUNCHES``; on the CPU it runs the plain version.  ``launch.card``
+chooses, and there is no fallback between the two.  The simple chunk is its
+own template instantiation of the chunk kernel and has its own launch count,
 ``rollout_chunk_simple_kernel``.  ``rollout_chunk`` carries the spans
 ``chunk`` -> ``chunk.args``, ``chunk.launch``, ``chunk.out`` of ``trace``;
 while tracing is on, one launcher call in ``trace.SAMPLE_EVERY`` launches
@@ -50,7 +51,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _ext, trace
+from .. import launch, trace
 from ..core.constants import (
     AGENT_COUNT,
     BOARD_SIZE,
@@ -64,10 +65,10 @@ from ..core.state import I32
 from ..device import resolve_device
 from ..agents.simple import RP_STALE, FsmState
 from .cellular import AGENT_FIELDS, PLANE_FIELDS, CellState, cellular_step
-from .fsm import fsm_act_plain, fsm_inputs
+from ..launch import chunk_args
+from .fsm import fsm_act_plain
 
 MAX_CHAIN_ROUNDS = 4
-POLICY_MOVES = {"harmless": 5, "random": 6, "simple": 5}
 STREAM_MOVES, STREAM_CELLS, STREAM_FLAGS = 0, 1, 2
 CORNERS = (0, BOARD_SIZE - 1, NUM_CELLS - 1, NUM_CELLS - BOARD_SIZE)
 
@@ -195,20 +196,6 @@ def _merge(fresh: CellState, cs: CellState, done) -> CellState:
     return cs._replace(**merged)
 
 
-def _check_args(policy: str, moves, fsm_state, inject_slots) -> int:
-    if policy not in POLICY_MOVES:
-        raise ValueError(f"unknown policy {policy!r}")
-    if (policy == "simple") != (fsm_state is not None):
-        raise ValueError("policy='simple' takes fsm_state (see "
-                         "simple_fsm_state_init); other policies do not")
-    if inject_slots and (policy != "simple" or moves is None):
-        raise ValueError("inject_slots is the mixed-control mode: it needs "
-                         "policy='simple' and moves carrying the override lanes")
-    if any(s not in range(AGENT_COUNT) for s in inject_slots):
-        raise ValueError(f"inject_slots {inject_slots} must name agents 0-3")
-    return POLICY_MOVES[policy]
-
-
 def _fresh_fsm(fsm: FsmState, done) -> FsmState:
     """Reset the done boards' FSM state: ring slots 14, count and moveQueue
     slots 0 (the head is 0 throughout)."""
@@ -225,7 +212,7 @@ def rollout_chunk_plain(cs: CellState, seed: int, steps: int,
                         reset_boards=None, fsm_state=None,
                         inject_slots=(), prng_rand: bool = False):
     """Plain version of the chunk kernel (see ``rollout_chunk``)."""
-    n_moves = _check_args(policy, moves, fsm_state, inject_slots)
+    n_moves = chunk_args(policy, moves, fsm_state, inject_slots)
     b, dev = cs.board.shape[0], cs.board.device
     if auto_reset:
         terrain = reset_boards if reset_boards is not None else \
@@ -274,168 +261,13 @@ def rollout_chunk_plain(cs: CellState, seed: int, steps: int,
     return out if len(out) > 1 else out[0]
 
 
-# --- Kernel wrappers -------------------------------------------------------------
+# --- Entry points ----------------------------------------------------------------
 
 
 def _to_device(cs: CellState, device) -> CellState:
     out = CellState(*(t.to(device) for t in cs))
     trace.count_copies(cs, out)
     return out
-
-
-def _kernel_inputs(cs: CellState, device_type: str):
-    """The 14 kernel-side arrays as contiguous int32 tensors, all of which
-    must lie on a device of ``device_type`` (the launcher's)."""
-    fields = [getattr(cs, name) for name in PLANE_FIELDS + AGENT_FIELDS]
-    arrays = [t.to(I32).contiguous() for t in fields]
-    trace.count_copies(fields, arrays)
-    for name, t in zip(PLANE_FIELDS + AGENT_FIELDS, arrays):
-        if t.device.type != device_type:
-            raise ValueError(f"{name} is not on a {device_type} device")
-    b = cs.board.shape[0]
-    for t, width in zip(arrays, (NUM_CELLS,) * 7 + (AGENT_COUNT,) * 7):
-        if t.shape != (b, width):
-            raise ValueError(f"state array of shape {tuple(t.shape)}, "
-                             f"expected {(b, width)}")
-    return arrays
-
-
-def _kernel_outputs(cs: CellState, outs, steps: int) -> CellState:
-    """The chunk's output state: the two flags cast to bool, ``alive_count``
-    recounted, ``timestep`` advanced by ``steps`` (five operations)."""
-    fields = dict(zip(PLANE_FIELDS + AGENT_FIELDS, outs))
-    fields["agent_can_kick"] = fields["agent_can_kick"] != 0
-    fields["agent_dead"] = fields["agent_dead"] != 0
-    out = cs._replace(**fields)
-    trace.COUNTERS["wrapper_ops"] += 5
-    return _with_counts(out, cs.timestep + steps)
-
-
-GAME_DTYPES = (torch.int32,) * 12 + (torch.bool,) * 2 + (torch.int32,) * 2
-
-
-def game_arrays(cs: CellState, device_type: str):
-    """The 16 arrays of ``cs`` in their own dtypes (int32, and bool as one
-    byte), contiguous, all on a device of ``device_type`` (the launcher's).
-    A conversion happens only where a field has another dtype."""
-    b = cs.board.shape[0]
-    shapes = ((b, NUM_CELLS),) * 7 + ((b, AGENT_COUNT),) * 7 + ((b,),) * 2
-    arrays = []
-    for name, t, dtype, shape in zip(CellState._fields, cs, GAME_DTYPES,
-                                     shapes):
-        if t.device.type != device_type:
-            raise ValueError(f"{name} is not on a {device_type} device")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} of shape {tuple(t.shape)}, expected "
-                             f"{shape}")
-        arrays.append(t.to(dtype).contiguous())
-    trace.count_copies(cs, arrays)
-    return arrays
-
-
-def _fused_step_launch(lib, stream, cs: CellState, moves) -> CellState:
-    """Marshal the arguments and call the step launcher of ``lib`` (on the
-    card's stream, or ``stream=None``: the tests' host build of the source
-    on CPU tensors, not counted as a launch)."""
-    ins = game_arrays(cs, "cpu" if stream is None else "cuda")
-    b, dev = ins[0].shape[0], ins[0].device
-    mv = moves.to(device=dev, dtype=I32).contiguous()
-    trace.COUNTERS["wrapper_ops"] += mv is not moves
-    moves = mv
-    if moves.shape != (b, AGENT_COUNT):
-        raise ValueError(f"moves must be i32[{b}, 4]")
-    outs = [torch.empty_like(t) for t in ins]
-    _ext.check(lib.pomcpp_fused_step(
-        _ext.game_view(ins), _ext.game_view(outs), moves.data_ptr(), b, stream,
-    ), lib.pomcpp_error_string)
-    if stream is not None:
-        _ext.LAUNCHES["fused_step_kernel"] += 1
-    return CellState(*outs)
-
-
-def _fused_step_cuda(cs: CellState, moves) -> CellState:
-    return _fused_step_launch(_ext.lib(), torch.cuda.current_stream().cuda_stream,
-                              cs, moves)
-
-
-def _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record, auto_reset,
-                        reset_boards, fsm_state, inject_slots, prng_rand):
-    return _rollout_chunk_launch(
-        _ext.lib(), torch.cuda.current_stream().cuda_stream, cs, seed, steps,
-        n_moves, moves, record, auto_reset, reset_boards, fsm_state,
-        inject_slots, prng_rand)
-
-
-def _rollout_chunk_launch(lib, stream, cs, seed, steps, n_moves, moves, record,
-                          auto_reset, reset_boards, fsm_state, inject_slots,
-                          prng_rand):
-    """Marshal the arguments and call the chunk launcher of ``lib``: an
-    ``nvcc`` build on the card's stream, which counts as a launch, or, in
-    the tests, the host build of the same source on CPU tensors
-    (``stream=None``), which does not.  While tracing is on, a sampled call
-    (``trace.sample_chunk``) launches the clocked instance."""
-    ins = _kernel_inputs(cs, "cpu" if stream is None else "cuda")
-    b, dev = ins[0].shape[0], ins[0].device
-    outs = [torch.empty_like(t) for t in ins]
-    mv_ptr = rb_ptr = rh_ptr = rm_ptr = rd_ptr = None
-    if prng_rand and not inject_slots:
-        moves = None   # the draws come from Philox; nothing reads moves
-    if moves is not None:
-        mv = moves.to(device=dev, dtype=I32).contiguous()
-        trace.COUNTERS["wrapper_ops"] += mv is not moves
-        moves = mv
-        if moves.shape != (steps, b, AGENT_COUNT):
-            raise ValueError(f"moves must be i32[{steps}, {b}, 4]")
-        mv_ptr = moves.data_ptr()
-    if reset_boards is not None:
-        rb, rh = (r.to(device=dev, dtype=I32).contiguous()
-                  for r in reset_boards)
-        trace.count_copies(reset_boards, (rb, rh))
-        if rb.shape != (b, NUM_CELLS) or rh.shape != (b, NUM_CELLS):
-            raise ValueError(f"reset_boards must be two i32[{b}, 121] planes")
-        rb_ptr, rh_ptr = rb.data_ptr(), rh.data_ptr()
-    if record:
-        rec_moves = torch.empty((steps, b, AGENT_COUNT), dtype=I32, device=dev)
-        rec_done = torch.empty((steps, b), dtype=I32, device=dev)
-        rm_ptr, rd_ptr = rec_moves.data_ptr(), rec_done.data_ptr()
-    key0, key1 = seed & _MASK32, (seed >> 32) & _MASK32
-    totals = trace.ON and trace.sample_chunk(dev) or None
-    if fsm_state is None:
-        in_view, out_view = _ext.state_view(ins), _ext.state_view(outs)
-        if trace.ON:
-            trace.phase("chunk.launch")
-        _ext.check(lib.pomcpp_rollout_chunk(
-            in_view, out_view, b, steps, n_moves, key0, key1, mv_ptr, rb_ptr,
-            rh_ptr, int(auto_reset), rm_ptr, rd_ptr, totals, stream,
-        ), lib.pomcpp_error_string)
-        kernel = "rollout_chunk_clocked_kernel" if totals else \
-            "rollout_chunk_kernel"
-    else:
-        fin = fsm_inputs(fsm_state, b, dev)
-        fout = [torch.empty_like(t) for t in fin]
-        inject_mask = sum(1 << s for s in set(inject_slots))
-        views = (_ext.state_view(ins), _ext.state_view(outs),
-                 _ext.fsm_view(fin), _ext.fsm_view(fout))
-        if trace.ON:
-            trace.phase("chunk.launch")
-        _ext.check(lib.pomcpp_rollout_chunk_simple(
-            *views, b, steps, key0, key1, mv_ptr, inject_mask,
-            int(prng_rand), rb_ptr, rh_ptr, int(auto_reset), rm_ptr, rd_ptr,
-            totals, stream,
-        ), lib.pomcpp_error_string)
-        kernel = "rollout_chunk_clocked_simple_kernel" if totals else \
-            "rollout_chunk_simple_kernel"
-    if stream is not None:
-        _ext.LAUNCHES[kernel] += 1
-    if trace.ON:
-        trace.phase("chunk.out")
-    out = (_kernel_outputs(cs, outs, steps),)
-    if record:
-        out += (rec_moves, rec_done != 0)
-        trace.COUNTERS["wrapper_ops"] += 1
-    if fsm_state is not None:
-        out += (FsmState(*fout),)
-    return out if len(out) > 1 else out[0]
 
 
 def fused_step(cs: CellState, moves, device=None) -> CellState:
@@ -446,11 +278,12 @@ def fused_step(cs: CellState, moves, device=None) -> CellState:
     ``timestep`` is kept, as in ``pallas_step``.
     """
     device = resolve_device(device)
+    card = launch.card(device)
+    if card:
+        return launch.fused_step(*card, cs, moves)
     cs = _to_device(cs, device)
-    moves = torch.as_tensor(moves).to(device=device, dtype=I32)
-    if device.type == "cpu":
-        return fused_step_plain(cs, moves)
-    return _fused_step_cuda(cs, moves)
+    return fused_step_plain(cs, torch.as_tensor(moves).to(device=device,
+                                                          dtype=I32))
 
 
 def rollout_chunk(cs: CellState, seed: int, steps: int, policy: str = "random",
@@ -491,10 +324,14 @@ def rollout_chunk(cs: CellState, seed: int, steps: int, policy: str = "random",
         if span:
             trace.phase("chunk.args")
         inject_slots = tuple(inject_slots)
-        n_moves = _check_args(policy, moves, fsm_state, inject_slots)
         if reset_boards is not None and not auto_reset:
             raise ValueError("reset_boards is the auto-reset test hook")
         device = resolve_device(device)
+        card = launch.card(device)
+        if card:
+            return launch.chunk(*card, cs, seed, steps, policy, moves, record,
+                                auto_reset, reset_boards, fsm_state,
+                                inject_slots, prng_rand)
         cs = _to_device(cs, device)
         if moves is not None:
             mv = torch.as_tensor(moves).to(device=device, dtype=I32)
@@ -510,13 +347,9 @@ def rollout_chunk(cs: CellState, seed: int, steps: int, policy: str = "random",
                              for t in fsm_state))
             trace.count_copies(fsm_state, fsm)
             fsm_state = fsm
-        if device.type == "cpu":
-            if span:
-                trace.phase("chunk.launch")
-            return rollout_chunk_plain(cs, seed, steps, policy, moves, record,
-                                       auto_reset, reset_boards, fsm_state,
-                                       inject_slots, prng_rand)
-        return _rollout_chunk_cuda(cs, seed, steps, n_moves, moves, record,
+        if span:
+            trace.phase("chunk.launch")
+        return rollout_chunk_plain(cs, seed, steps, policy, moves, record,
                                    auto_reset, reset_boards, fsm_state,
                                    inject_slots, prng_rand)
     finally:

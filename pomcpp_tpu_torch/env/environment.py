@@ -18,8 +18,8 @@ form of its JAX counterpart -- there is no ``vmap`` here:
 * ``env_step_auto_reset_batch_fsm(...)`` -- mixed control: SimpleAgent
   opponents act inside the chunk kernel (``rollout_chunk`` with
   ``steps=1``), learner lanes are injected; on the card the epilogue
-  follows as ``env_merge_kernel``: two launches, whose arguments its own
-  path (``_env_fsm_launch``) marshals once.  It carries the spans
+  follows as ``env_merge_kernel``: two launches, ``launch.chunk`` and
+  ``launch.env_merge``, each array checked once.  It carries the spans
   ``env.step`` -> ``env.args``, ``chunk``, ``merge`` of ``trace``
 * ``act_all`` / ``rollout`` / ``rollout_stateful`` -- policy loops
 
@@ -67,8 +67,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _ext, trace
-from ..agents.simple import FsmState
+from .. import launch, trace
 from ..core.board_gen import (
     STREAM_ENV_CELLS,
     STREAM_ENV_FLAGS,
@@ -81,22 +80,14 @@ from ..core.board_gen import (
     seat_perm,
     terrain_of,
 )
-from ..core.constants import AGENT_COUNT, C_WOOD, NUM_CELLS
+from ..core.constants import AGENT_COUNT, C_WOOD
 from ..core.state import I32, State, map_state, put_agents_in_corners
 from ..device import resolve_device
 from ..engine.cellular import CellState, cellular_step, empty_cell_state
-from ..engine.fused_step import (
-    GAME_DTYPES,
-    _check_args,
-    _kernel_outputs,
-    fused_step,
-    game_arrays,
-    rollout_chunk,
-)
+from ..engine.fused_step import fused_step, rollout_chunk
 from ..engine.step import step as exact_step
 
 ENGINES = ("cellular", "exact")
-_CPU = torch.device("cpu")
 
 # Classic Pommerman 2v2 teams: agents {0, 2} vs {1, 3}.
 TEAM_OF = (0, 1, 0, 1)
@@ -334,117 +325,6 @@ def env_step_auto_reset(es: EnvState, moves, team_mode: bool = False,
                                  randomize_positions, fresh)
 
 
-ENV_DTYPES = (torch.bool, I32, torch.bool, torch.int64)
-
-
-def _env_arrays(es: EnvState, device_type: str):
-    """done, winner, is_draw and key of ``es`` for the env kernels."""
-    b = es.done.shape[0]
-    arrays = []
-    for name, t, dtype, shape in zip(EnvState._fields[1:], es[1:], ENV_DTYPES,
-                                     ((b,), (b,), (b,), (b, 3))):
-        if t.device.type != device_type or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {list(shape)} on a "
-                             f"{device_type} device")
-        arrays.append(t.to(dtype).contiguous())
-    trace.count_copies(es[1:], arrays)
-    return arrays
-
-
-def _env_launch(lib, stream, es: EnvState, team_mode: bool, max_steps: int,
-                randomize_positions: bool, fresh, moves=None, game=None):
-    """Marshal an env kernel's arguments and call its launcher in ``lib``:
-    with ``moves``, the fused env step (``fused_step_kernel<true>``) into
-    new arrays; with ``game``, the epilogue alone (``env_merge_kernel``),
-    which writes that stepped batch IN PLACE (the done boards' fresh games)
-    and returns it: only the caller's one-step chunk holds it.
-    ``stream=None`` is the tests' host build of the source on CPU tensors,
-    which does not count as a launch.  Inside an open ``merge`` span its
-    phases are ``merge.args`` and ``merge.launch``."""
-    if trace.ON:
-        trace.phase("merge.args")
-    dev_type = "cpu" if stream is None else "cuda"
-    if not -2 ** 31 <= max_steps < 2 ** 31:
-        raise ValueError("max_steps must fit in 32 bits")
-    env_in = _env_arrays(es, dev_type)
-    b = env_in[0].shape[0]
-    games = game_arrays(es.game if game is None else game, dev_type)
-    dev = games[0].device
-    if games[0].shape[0] != b:
-        raise ValueError(f"the game must hold {b} boards")
-    fresh_arrays = None
-    if fresh is not None:
-        fresh_dev = CellState(*(t.to(dev) for t in fresh))
-        trace.count_copies(fresh, fresh_dev)
-        fresh_arrays = game_arrays(fresh_dev, dev_type)
-        if fresh_arrays[0].shape[0] != b:
-            raise ValueError(f"fresh must hold {b} boards")
-    env_out = [torch.empty_like(t) for t in env_in]
-    cfg = (int(team_mode), int(max_steps), int(randomize_positions), stream)
-    if game is None:
-        mv = moves.to(device=dev, dtype=I32).contiguous()
-        trace.COUNTERS["wrapper_ops"] += mv is not moves
-        moves = mv
-        if moves.shape != (b, AGENT_COUNT):
-            raise ValueError(f"moves must be i32[{b}, 4]")
-        outs = [torch.empty_like(t) for t in games]
-        views = (_ext.game_view(games), _ext.env_view(env_in),
-                 _ext.game_view(outs), _ext.env_view(env_out),
-                 _ext.game_view(fresh_arrays))
-        if trace.ON:
-            trace.phase("merge.launch")
-        err = lib.pomcpp_env_step(*views, moves.data_ptr(), b, *cfg)
-        kernel = "fused_env_step_kernel"
-    else:
-        outs = games
-        views = (_ext.game_view(games), _ext.env_view(env_in),
-                 _ext.env_view(env_out), _ext.game_view(fresh_arrays))
-        if trace.ON:
-            trace.phase("merge.launch")
-        err = lib.pomcpp_env_merge(*views, b, *cfg)
-        kernel = "env_merge_kernel"
-    _ext.check(err, lib.pomcpp_error_string)
-    if stream is not None:
-        _ext.LAUNCHES[kernel] += 1
-    return EnvState(CellState(*outs), *env_out)
-
-
-def _env_launch_cuda(es, team_mode, max_steps, randomize_positions, fresh,
-                     **step):
-    return _env_launch(_ext.lib(), torch.cuda.current_stream().cuda_stream,
-                       es, team_mode, max_steps, randomize_positions, fresh,
-                       **step)
-
-
-def _card_launcher(device):
-    """``(lib, stream)`` of the kernels for tensors on ``device``: the
-    ``nvcc`` build on the current stream for the card, None for the CPU
-    (the plain versions)."""
-    if device.type != "cuda":
-        return None
-    return _ext.lib(), torch.cuda.current_stream().cuda_stream
-
-
-def _typed(t, name: str, dtype, shape: tuple, dev):
-    """``t`` as a launcher on ``dev`` takes it: ``dtype``, ``shape``,
-    contiguous.  A tensor that is so already is returned as it is, after
-    attribute checks alone; anything else gets one conversion: a list or a
-    numpy array becomes a tensor, a host array or one on another card is
-    copied to the card (``dev``).  Another shape, or a device that the
-    launcher cannot be handed a copy from, is refused."""
-    if not isinstance(t, torch.Tensor):
-        t = torch.as_tensor(t)
-    elif t.dtype is dtype and t.device == dev and t.shape == shape and \
-            t.is_contiguous():
-        return t
-    on = t.device.type
-    if t.shape != shape or (on != dev.type and
-                            not (dev.type == "cuda" and on == "cpu")):
-        raise ValueError(f"{name} must be {list(shape)} on a {dev.type} "
-                         "device")
-    return t.to(device=dev, dtype=dtype).contiguous()
-
-
 def _rand_lanes(moves, rands, slots: tuple):
     """The chunk's moves when the FSM's rands are handed in (the
     ``rand_moves`` hook): the learner lanes ``slots`` of ``moves``, the
@@ -453,107 +333,6 @@ def _rand_lanes(moves, rands, slots: tuple):
     lane[list(slots)] = True
     trace.COUNTERS["wrapper_ops"] += 2
     return torch.where(lane, moves, rands)
-
-
-def _env_fsm_launch(lib, stream, es: EnvState, learner_moves, fsm_state,
-                    slots: tuple, seed: int, team_mode: bool, max_steps: int,
-                    randomize_positions: bool, rand_moves=None, fresh=None):
-    """The mixed-control env step's own path through the launchers of
-    ``lib``: the one-step simple chunk, then ``env_merge_kernel`` in place
-    on the chunk's output, with the arguments that ``rollout_chunk`` and
-    ``_env_launch`` give them.  ``stream=None`` is the tests' host build of
-    the source on CPU tensors, which does not count as a launch; otherwise
-    the arrays go to the current card.  ``rand_moves`` and ``fresh`` are
-    the entry point's test hooks.
-
-    Each array is checked once, by its attributes: one already in the
-    launcher's dtype and layout goes to the launcher as it is (counted in
-    ``trace``'s ``arrays_as_is``), any other takes one conversion
-    (``wrapper_ops``), as the int32 chunk does the two bool agent flags.
-    The outputs come in three allocations, the planes, the agent fields and
-    the FSM arrays, each split into its arrays.  Spans and phases are those
-    of ``rollout_chunk`` and ``_env_launch``."""
-    dev = _CPU if stream is None else \
-        torch.device("cuda", torch.cuda.current_device())
-    _check_args("simple", learner_moves, fsm_state, slots)
-    if not -2 ** 31 <= max_steps < 2 ** 31:
-        raise ValueError("max_steps must fit in 32 bits")
-    if len(fsm_state) != 10:
-        raise ValueError("the FSM state has ten arrays")
-    chunk = trace.ON and trace.begin("chunk")
-    if chunk:
-        trace.phase("chunk.args")
-    b = es.game.board.shape[0]
-    plane, agent = (b, NUM_CELLS), (b, AGENT_COUNT)
-    shapes = (plane,) * 7 + (agent,) * 7 + ((b,),) * 2
-    ins = [_typed(t, name, I32, shape, dev) for name, t, shape in zip(
-        CellState._fields[:14], es.game, shapes)]
-    ts = _typed(es.game.timestep, "timestep", I32, (b,), dev)
-    mv = _typed(learner_moves, "moves", I32, agent, dev)
-    fin = [_typed(t, "fsm_state", I32, agent, dev) for t in fsm_state]
-    trace.count_marshalled(
-        (*es.game[:14], es.game.timestep, learner_moves, *fsm_state),
-        (*ins, ts, mv, *fin))
-    if rand_moves is not None:
-        rm = _typed(rand_moves, "rand_moves", I32, agent, dev)
-        trace.count_marshalled((rand_moves,), (rm,))
-        mv = _rand_lanes(mv, rm, slots)
-    planes = torch.empty((7,) + plane, dtype=I32, device=dev)
-    agents = torch.empty((7,) + agent, dtype=I32, device=dev)
-    fout = torch.empty((10,) + agent, dtype=I32, device=dev)
-    out_ptrs = _ext.row_ptrs(planes) + _ext.row_ptrs(agents)
-    views = (_ext.view(_ext.StateView, [t.data_ptr() for t in ins]),
-             _ext.view(_ext.StateView, out_ptrs),
-             _ext.view(_ext.FsmView, [t.data_ptr() for t in fin]),
-             _ext.view(_ext.FsmView, _ext.row_ptrs(fout)))
-    totals = trace.ON and trace.sample_chunk(dev) or None
-    if chunk:
-        trace.phase("chunk.launch")
-    _ext.check(lib.pomcpp_rollout_chunk_simple(
-        *views, b, 1, seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF,
-        mv.data_ptr() if slots or rand_moves is not None else None,
-        sum(1 << s for s in set(slots)), int(rand_moves is None), None,
-        None, 0, None, None, totals, stream,
-    ), lib.pomcpp_error_string)
-    if stream is not None:
-        _ext.LAUNCHES["rollout_chunk_clocked_simple_kernel" if totals
-                      else "rollout_chunk_simple_kernel"] += 1
-    if chunk:
-        trace.phase("chunk.out")
-    game = _kernel_outputs(es.game._replace(timestep=ts),
-                           planes.unbind(0) + agents.unbind(0), 1)
-    if chunk:
-        trace.end(chunk)
-    merge = chunk and trace.begin("merge")
-    if merge:
-        trace.phase("merge.args")
-    env_in = [_typed(t, name, dtype, shape, dev) for name, t, dtype, shape
-              in zip(EnvState._fields[1:], es[1:], ENV_DTYPES,
-                     ((b,), (b,), (b,), (b, 3)))]
-    trace.count_marshalled(es[1:], env_in)
-    fresh_view = _ext.GameView()
-    if fresh is not None:
-        fr = [_typed(t, f"fresh {name}", dtype, shape, dev) for
-              name, t, dtype, shape in zip(CellState._fields, fresh,
-                                           GAME_DTYPES, shapes)]
-        trace.count_marshalled(fresh, fr)
-        fresh_view = _ext.view(_ext.GameView, [t.data_ptr() for t in fr])
-    env_out = [torch.empty_like(t) for t in env_in]
-    views = (_ext.view(_ext.GameView, out_ptrs[:12] + [
-                 t.data_ptr() for t in game[12:]]),
-             _ext.view(_ext.EnvView, [t.data_ptr() for t in env_in]),
-             _ext.view(_ext.EnvView, [t.data_ptr() for t in env_out]),
-             fresh_view)
-    if merge:
-        trace.phase("merge.launch")
-    _ext.check(lib.pomcpp_env_merge(
-        *views, b, int(team_mode), int(max_steps), int(randomize_positions),
-        stream), lib.pomcpp_error_string)
-    if stream is not None:
-        _ext.LAUNCHES["env_merge_kernel"] += 1
-    if merge:
-        trace.end(merge)
-    return EnvState(game, *env_out), FsmState(*fout.unbind(0))
 
 
 def env_step_auto_reset_batch(es: EnvState, moves, team_mode: bool = False,
@@ -576,10 +355,12 @@ def env_step_auto_reset_batch(es: EnvState, moves, team_mode: bool = False,
         return env_step_auto_reset(es, moves, team_mode, max_steps,
                                    randomize_positions, fresh, device)
     _check_fused_game(es.game)
+    card = launch.card(resolve_device(device))
+    if card:
+        game, env = launch.env_step(*card, es[1:], es.game, moves, fresh,
+                                    team_mode, max_steps, randomize_positions)
+        return EnvState(game, *env)
     es, moves, device = _prepare(es, moves, device)
-    if device.type == "cuda":
-        return _env_launch_cuda(es, team_mode, max_steps, randomize_positions,
-                                fresh, moves=moves)
     game = fused_step(es.game, moves, device=device)
     game = game._replace(timestep=game.timestep + 1)
     return _merge_done_and_reset(es, game, team_mode, max_steps,
@@ -599,21 +380,20 @@ def env_step_auto_reset_batch_fsm(es: EnvState, learner_moves, fsm_state,
     in ``learner_slots`` act through the FSM of ``engine.fsm`` inside
     ``rollout_chunk(steps=1, policy="simple")`` -- on the card one launch of
     the simple chunk kernel, then one of ``env_merge_kernel``, which writes
-    the epilogue into the chunk's output in place.  ``fsm_state`` is the ten-array state
-    (``simple_fsm_state_init``); ``seed`` keys the Philox draws of the FSM's
-    rands and must differ from step to step.  ``rand_moves`` (i32[B, 4],
-    tests) supplies those draws instead; the learner lanes of the merged
-    input are the override moves either way.  Returns ``(EnvState,
-    fsm_state')``; the caller owns resetting the ``fsm_state`` rows of
-    finished boards.
+    the epilogue into the chunk's output in place.  ``fsm_state`` is the
+    ten-array state (``simple_fsm_state_init``); ``seed`` keys the Philox
+    draws of the FSM's rands and must differ from step to step.
+    ``rand_moves`` (i32[B, 4], tests) supplies those draws instead; the
+    learner lanes of the merged input are the override moves either way.
+    Returns ``(EnvState, fsm_state')``; the caller owns resetting the
+    ``fsm_state`` rows of finished boards.
 
-    On the card the step takes its own path (``_env_fsm_launch``), the
-    test hooks too, which checks each array once by its attributes and
-    converts only what is not in the kernels' dtypes.  There the
-    outputs of a group share one allocation -- the seven planes, the five
-    int32 agent fields (with the chunk's int32 flags), the ten FSM arrays --
-    so a caller who keeps one array of a group keeps the whole group
-    alive.
+    On the card the step is ``launch.chunk`` and ``launch.env_merge``, the
+    test hooks too: each array is checked once by its attributes and only
+    what is not in the kernels' dtypes is converted.  There the outputs of
+    a group share one allocation -- the seven planes, the five int32 agent
+    fields (with the chunk's int32 flags), the ten FSM arrays -- so a caller
+    who keeps one array of a group keeps the whole group alive.
     """
     span = trace.ON and trace.begin("env.step")
     try:
@@ -621,11 +401,29 @@ def env_step_auto_reset_batch_fsm(es: EnvState, learner_moves, fsm_state,
             trace.phase("env.args")
         _check_fused_game(es.game)
         slots = tuple(learner_slots)
-        card = _card_launcher(resolve_device(device))
+        card = launch.card(resolve_device(device))
         if card:
-            return _env_fsm_launch(*card, es, learner_moves, fsm_state, slots,
-                                   seed, team_mode, max_steps,
-                                   randomize_positions, rand_moves, fresh)
+            chunk = span and trace.begin("chunk")
+            if chunk:
+                trace.phase("chunk.args")
+            b, dev = es.game.board.shape[0], launch.device(card[1])
+            mv = launch.typed(learner_moves, "moves", I32, (b, AGENT_COUNT),
+                              dev)
+            if rand_moves is not None:
+                mv = _rand_lanes(mv, launch.typed(
+                    rand_moves, "rand_moves", I32, (b, AGENT_COUNT), dev), slots)
+            game, fsm2 = launch.chunk(
+                *card, es.game, seed, 1, "simple", mv.view(1, b, AGENT_COUNT),
+                auto_reset=False, fsm_state=fsm_state, inject_slots=slots,
+                prng_rand=rand_moves is None)
+            if chunk:
+                trace.end(chunk)
+            merge = span and trace.begin("merge")
+            game, env = launch.env_merge(*card, es[1:], game, fresh, team_mode,
+                                         max_steps, randomize_positions)
+            if merge:
+                trace.end(merge)
+            return EnvState(game, *env), fsm2
         es, learner_moves, device = _prepare(es, learner_moves, device)
         mv = learner_moves
         if rand_moves is not None:

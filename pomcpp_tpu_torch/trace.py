@@ -22,14 +22,16 @@ the device has done it.  Each of the learner's functions called alone is a
 root, and ``env.step`` is a root when the learner does not call it.
 
 ``chunk.args`` holds the argument checks, the conversions and the
-marshalling of the launcher's arguments, ``chunk.launch`` the ctypes
-launcher call and its error check, ``chunk.out`` the output casts and the
-recount; ``merge`` is the env epilogue (``_env_launch``).  On the card
-the env step runs its own typed path (``_env_fsm_launch``), which opens the
-same spans and phases around the same launcher calls.  On CPU tensors
-the plain chunk runs where the card's launch would (``chunk.launch``; no
-``chunk.out``), and the plain epilogue is ``merge`` itself, with no phases.
-``rollout_chunk`` called on its own makes ``chunk`` a root.
+marshalling of the launcher's arguments (``launch.chunk``), ``chunk.launch``
+the ctypes launcher call and its error check, ``chunk.out`` the output
+casts and the recount; ``merge`` is the env epilogue (``launch.env_merge``:
+``merge.args``, then the call in ``merge.launch``).  The env step opens its
+``chunk`` and ``merge`` spans itself and calls the two launch functions;
+``rollout_chunk`` opens ``chunk`` and calls ``launch.chunk``.  On CPU
+tensors the plain chunk runs where the card's launch would
+(``chunk.launch``; no ``chunk.out``), and the plain epilogue is ``merge``
+itself, with no phases.  ``rollout_chunk`` called on its own makes
+``chunk`` a root.
 Each span is a ``Span`` record; times are ``time.perf_counter_ns()``, the
 clock of ``time.perf_counter()``.  Every span gets a fresh ``span_id``; a
 child carries its parent's as ``parent_id`` (0 for a root).  A root span's
@@ -46,29 +48,26 @@ Counters, always on:
   (``engine.flames``, ``engine.step``);
 * ``COUNTERS["wrapper_ops"]``: device operations the chunk and env wrappers
   enqueue with their own PyTorch calls -- a conversion or copy that made a
-  new tensor, an output cast, the recount of ``alive_count`` and the
-  timestep's advance (allocations are not operations);
-* ``COUNTERS["arrays_as_is"]``: input arrays that the mixed-control env
-  step's typed path (``env.environment._env_fsm_launch``) takes as they
-  are, checked by their attributes alone, with no conversion or copy call
-  made for them; set against ``wrapper_ops``, its engagement;
+  new tensor (``launch.typed``'s, and the plain paths' ``count_copies``),
+  an output cast, the recount of ``alive_count`` and the timestep's advance
+  (allocations are not operations);
 * ``COUNTERS["model_rows"]``: rows through the actor-critic's forward in
   the learner's collect (``learner.ppo._policy_slots``, the bootstrap
   value's included), counted on the host from shapes;
 * ``COUNTERS["feature_rows"]``: feature rows the feature kernel built
-  (``models.features._ego_features_launch``); equal to ``model_rows`` when
-  every act of a collect took the kernel;
+  (``launch.ego_features``); equal to ``model_rows`` when every act of a
+  collect took the kernel;
 * ``COUNTERS["update_rows"]``: rows through the forward and backward of
   ``learner.ppo.ppo_update``, each epoch counted again.
 
 Phase clocks.  While tracing is on, every ``SAMPLE_EVERY``-th call of the
-chunk launcher (``engine.fused_step._rollout_chunk_launch``) since
-``enable()`` launches the chunk kernel's clocked instance
-(``rollout_chunk_clocked_kernel``), which sums each phase's warp cycles and
-a few event counts (``PHASES``, ``wl::Phase`` of ``csrc/step_warp.cuh``)
-over the call's warps into a row of its own of a device buffer.  The
-buffer is zeroed when it is allocated, at the first launcher call after
-``enable()``, so a sampled call adds no device operation and no host read.
+chunk launcher (``launch.chunk``) since ``enable()`` launches the chunk
+kernel's clocked instance (``rollout_chunk_clocked_kernel``), which sums
+each phase's warp cycles and a few event counts (``PHASES``, ``wl::Phase``
+of ``csrc/step_warp.cuh``) over the call's warps into a row of its own of a
+device buffer.  The buffer is zeroed when it is allocated, at the first
+launcher call after ``enable()``, so a sampled call adds no device
+operation and no host read.
 ``phase_rows()`` copies the rows to the host and tags each with its call's
 ``chunk`` span.  The cycles of a phase include the time a warp waited for
 its turn on the SM.
@@ -92,8 +91,8 @@ PHASES = ("draw", "danger", "bfs", "flee", "decide", "move", "bombs", "blast",
 
 ON = False
 LAUNCHES: dict = {}
-COUNTERS = {"host_reads": 0, "wrapper_ops": 0, "arrays_as_is": 0,
-            "model_rows": 0, "feature_rows": 0, "update_rows": 0}
+COUNTERS = {"host_reads": 0, "wrapper_ops": 0, "model_rows": 0,
+            "feature_rows": 0, "update_rows": 0}
 
 
 class Span(NamedTuple):
@@ -155,14 +154,6 @@ def count_copies(before, after) -> None:
     """Count in ``wrapper_ops`` each tensor of ``after`` that a conversion
     made anew (that is not the tensor at the same place of ``before``)."""
     COUNTERS["wrapper_ops"] += len(after) - sum(map(operator.is_, before, after))
-
-
-def count_marshalled(before, after) -> None:
-    """As ``count_copies``, and count in ``arrays_as_is`` each tensor of
-    ``after`` that is the tensor at the same place of ``before``."""
-    same = sum(map(operator.is_, before, after))
-    COUNTERS["arrays_as_is"] += same
-    COUNTERS["wrapper_ops"] += len(after) - same
 
 
 def _close_to(depth: int, now: int) -> None:

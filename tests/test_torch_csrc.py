@@ -3,9 +3,10 @@
 Three kinds of test:
 
 * source hygiene -- every header a ``.cu`` includes is hashed into its
-  library's file name (an edited header must trigger a rebuild), the
-  kernels hold one board per warp and no CTA-wide barrier, and the launch
-  grid covers the batch;
+  library's file name (an edited header must trigger a rebuild), only
+  ``launch.py`` calls the engine and feature libraries, the kernels hold
+  one board per warp and no CTA-wide barrier, and the launch grid covers
+  the batch;
 * the warp-layout kernels' OWN source run on the CPU: ``csrc/host_emu``
   stands in for ``cuda_runtime.h``, g++ compiles ``fused_step.cu`` as plain
   C++, and a warp runs as 32 fibers that meet at every ``*_sync``
@@ -42,23 +43,15 @@ import pytest
 import torch
 
 import chip_smoke
-from pomcpp_tpu_torch import _ext, probes, trace
+from pomcpp_tpu_torch import _ext, launch, probes, trace
 from pomcpp_tpu_torch.convert import diff_fields
 from pomcpp_tpu_torch.core.board_gen import random_cell_state
 from pomcpp_tpu_torch.engine import fused_step as fs
 from pomcpp_tpu_torch.engine.cellular import empty_cell_state
-from pomcpp_tpu_torch.engine.fsm import (
-    _fsm_act_launch,
-    fsm_act_plain,
-    simple_fsm_state_init,
-)
+from pomcpp_tpu_torch.engine.fsm import fsm_act_plain, simple_fsm_state_init
 from pomcpp_tpu_torch.env import environment as env
 from pomcpp_tpu_torch.learner import ppo as tppo
-from pomcpp_tpu_torch.models import features
-from pomcpp_tpu_torch.models.features import (
-    _ego_features_launch,
-    ego_features_plain,
-)
+from pomcpp_tpu_torch.models.features import ego_features_plain
 
 CSRC = _ext.CSRC
 WARP_HEADERS = ("step_warp.cuh", "fsm_warp.cuh", "env_warp.cuh",
@@ -97,6 +90,40 @@ def test_every_cu_file_is_a_library():
 def test_every_header_in_csrc_is_in_a_library():
     listed = {h for _, headers in _ext.LIBRARIES.values() for h in headers}
     assert {p.name for p in CSRC.glob("*.cuh")} == listed
+
+
+class _Entries(dict):
+    """Stands in for a loaded library: records each entry a binder
+    declares."""
+
+    def __getattr__(self, name):
+        return self.setdefault(name, type("Entry", (), {})())
+
+
+def test_only_the_launch_layer_calls_the_kernel_libraries():
+    """No module of the package but ``launch.py`` names an entry of the
+    engine or feature library (``_ext`` declares them, ``probes.py`` calls
+    its own library's), and one function, ``launch.card``, reads the card's
+    stream for them: the four entry points choose by it alone."""
+    entries = set(_ext.bind_kernels(_Entries())) | \
+        set(_ext.bind_features(_Entries()))
+    assert "pomcpp_env_merge" in entries and "pomcpp_ego_features" in entries
+    package = CSRC.parent
+    callers, streams, switches = set(), set(), set()
+    for path in package.rglob("*.py"):
+        code = path.read_text()
+        name = path.relative_to(package).as_posix()
+        if set(re.findall(r"\b\w+\.(pomcpp_\w+)", code)) & entries and \
+                name != "_ext.py":
+            callers.add(name)
+        if "current_stream(" in code:
+            streams.add(name)
+        if "launch.card(" in code:
+            switches.add(name)
+    assert callers == {"launch.py"}
+    assert streams == {"launch.py", "probes.py"}
+    assert switches == {"engine/fused_step.py", "engine/fsm.py",
+                        "env/environment.py", "models/features.py"}
 
 
 def test_the_cta_layout_is_gone():
@@ -298,23 +325,23 @@ def test_chunk_grid_covers_the_batch(host_lib, batch):
 
 def test_host_build_launches_are_not_counted(host_lib):
     """``LAUNCHES`` counts launches on the card, at the launch; the host
-    build of the kernel's source on CPU tensors is none."""
+    build of the kernel's source on CPU tensors is none, and it refuses an
+    array on any other device, which it cannot read."""
     _ext.reset_launches()
     cs, _ = _batch(2, 1)
     _both(host_lib, cs, 7, 2, "random")
     _both(host_lib, cs, 7, 2, "simple",
           fsm_state=simple_fsm_state_init(2, "cpu"))
-    fs._fused_step_launch(host_lib, None, cs, torch.zeros((2, 4)))
+    launch.fused_step(host_lib, None, cs, torch.zeros((2, 4)))
     es = env.env_reset(3, 2, device="cpu")
-    env._env_launch(host_lib, None, es, False, 0, False, None,
-                    moves=torch.zeros((2, 4)))
-    env._env_launch(host_lib, None, es, False, 0, False, None, game=es.game)
+    _env_step(host_lib, es, torch.zeros((2, 4)))
+    launch.env_merge(host_lib, None, es[1:], es.game, None, False, 0, False)
     assert not any(_ext.LAUNCHES.values())
-    with pytest.raises(ValueError, match="not on a cuda device"):
-        fs._rollout_chunk_launch(host_lib, 0, cs, 7, 2, 6, None, False, True,
-                                 None, None, (), False)
-    with pytest.raises(ValueError, match="not on a cuda device"):
-        fs._fused_step_launch(host_lib, 0, cs, torch.zeros((2, 4)))
+    elsewhere = cs._replace(board=cs.board.to("meta"))
+    with pytest.raises(ValueError, match="board must be \\[2, 121\\] on a cpu"):
+        launch.chunk(host_lib, None, elsewhere, 7, 2)
+    with pytest.raises(ValueError, match="board must be \\[2, 121\\] on a cpu"):
+        launch.fused_step(host_lib, None, elsewhere, torch.zeros((2, 4)))
 
 
 def _batch(b, seed):
@@ -328,8 +355,7 @@ def _both(host_lib, cs, seed, steps, policy, **kw):
     args = dict(moves=None, record=True, auto_reset=True, reset_boards=None,
                 fsm_state=None, inject_slots=(), prng_rand=False)
     args.update(kw)
-    k = fs._rollout_chunk_launch(host_lib, None, cs, seed, steps,
-                                 fs.POLICY_MOVES[policy], **args)
+    k = launch.chunk(host_lib, None, cs, seed, steps, policy, **args)
     p = fs.rollout_chunk_plain(cs, seed, steps, policy, **args)
     return k, p
 
@@ -433,7 +459,7 @@ def test_chunk_source_matches_plain_on_every_joint_move_in_a_ring(host_lib,
 
 
 def _step_both(host_lib, cs, moves):
-    k = fs._fused_step_launch(host_lib, None, cs, moves)
+    k = launch.fused_step(host_lib, None, cs, moves)
     p = fs.fused_step_plain(cs, moves)
     assert not diff_fields(k, p, skip=())
     return p
@@ -462,6 +488,14 @@ def test_step_source_matches_plain_on_ragged_batches(host_lib, b):
     for _ in range(3 if b > 5 else 12):
         mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
         cs = _step_both(host_lib, cs, mv)
+
+
+def _env_step(host_lib, es, moves, fresh=None, team_mode=False, max_steps=0,
+              randomize_positions=False):
+    """``fused_step_kernel<true>``'s source on ``es``."""
+    game, rest = launch.env_step(host_lib, None, es[1:], es.game, moves, fresh,
+                                 team_mode, max_steps, randomize_positions)
+    return env.EnvState(game, *rest)
 
 
 def _same_env(card, plain, what):
@@ -514,9 +548,7 @@ def test_env_step_source_matches_plain(host_lib, case, done):
             fresh = random_cell_state(b, generator=gen,
                                       randomize_positions=True)
         resets += int(plain.done.sum())
-        card = env._env_launch(host_lib, None, card, kw["team_mode"],
-                               kw["max_steps"], kw["randomize_positions"],
-                               fresh, moves=mv)
+        card = _env_step(host_lib, card, mv, fresh, **kw)
         plain = env.env_step_auto_reset_batch(plain, mv, fused=True,
                                               fresh=fresh, device="cpu", **kw)
         _same_env(card, plain, f"{case} step {t}")
@@ -528,10 +560,10 @@ def _merge(host_lib, es, game, fresh=None, team_mode=False, max_steps=0,
     """``env_merge_kernel``'s source on a copy of ``game``, which it writes
     in place and returns as the merged game."""
     mine = type(game)(*(t.clone() for t in game))
-    out = env._env_launch(host_lib, None, es, team_mode, max_steps,
-                          randomize_positions, fresh, game=mine)
-    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(out.game, mine))
-    return out
+    merged, rest = launch.env_merge(host_lib, None, es[1:], mine, fresh,
+                                    team_mode, max_steps, randomize_positions)
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(merged, mine))
+    return env.EnvState(merged, *rest)
 
 
 @pytest.mark.parametrize("done", ["none", "some", "all"])
@@ -622,7 +654,7 @@ def _acts_both(host_lib, cs, acts, seed):
     fk = fp = simple_fsm_state_init(b, "cpu")
     for t in range(acts):
         rand = torch.randint(0, 5, (b, 4), generator=gen, dtype=torch.int32)
-        mk, fk = _fsm_act_launch(host_lib, None, cs, fk, rand)
+        mk, fk = launch.fsm_act(host_lib, None, cs, fk, rand)
         mp, fp = fsm_act_plain(cs, fp, rand)
         assert torch.equal(mk, mp), f"moves, act {t}"
         for k, (x, y) in enumerate(zip(fk, fp)):
@@ -664,11 +696,11 @@ def test_act_marshalling_calls_no_operator_but_allocations(host_lib):
     fsm = simple_fsm_state_init(5, "cpu")
     rand = torch.randint(0, 5, (5, 4), generator=gen, dtype=torch.int32)
     assert chip_smoke.device_ops(
-        lambda: _fsm_act_launch(host_lib, None, cs, fsm, rand)) == []
+        lambda: launch.fsm_act(host_lib, None, cs, fsm, rand)) == []
     flags_i32 = cs._replace(agent_can_kick=cs.agent_can_kick.int(),
                             agent_dead=cs.agent_dead.int())
     ops = chip_smoke.device_ops(
-        lambda: _fsm_act_launch(host_lib, None, flags_i32, fsm, rand))
+        lambda: launch.fsm_act(host_lib, None, flags_i32, fsm, rand))
     assert len(ops) == 2 and all("_to_copy" in op for op in ops)
 
 
@@ -698,8 +730,7 @@ def test_env_sources_match_plain_on_key_columns_above_2_32(host_lib, kernel):
     for t in range(3):
         mv = torch.randint(0, 6, (b, 4), generator=gen, dtype=torch.int32)
         if kernel == "step":
-            card = env._env_launch(host_lib, None, card, False, 0, True, None,
-                                   moves=mv)
+            card = _env_step(host_lib, card, mv, randomize_positions=True)
             plain = env.env_step_auto_reset_batch(
                 plain, mv, fused=True, randomize_positions=True, device="cpu")
         else:
@@ -713,25 +744,23 @@ def test_env_sources_match_plain_on_key_columns_above_2_32(host_lib, kernel):
     assert int(plain.key[:, 2].min()) >= 2 ** 32
 
 
-# --- the mixed-control env step's typed path on the CPU --------------------------
+# --- the mixed-control env step's card path on the CPU ---------------------------
 
 
-# case -> (what the path is handed, env kwargs, learner slots, wrapper_ops
-# and arrays_as_is a step): int64 moves and FSM arrays, or numpy ones, take
-# one conversion each, int32 agent flags none, bool flags the chunk's two;
-# the test hooks' arrays are taken as they are, and ``rand_moves`` makes
-# the chunk's moves in two operations.
+# case -> (what the path is handed, env kwargs, learner slots, wrapper_ops a
+# step): int64 moves and FSM arrays, or numpy ones, take one conversion
+# each, int32 agent flags none, bool flags the chunk's two; the test hooks'
+# arrays are taken as they are, and ``rand_moves`` makes the chunk's moves
+# in two operations.
 FSM_PATH_CASES = {
-    "typed": ("as_is", dict(max_steps=5), (0,), 7, 28),
+    "typed": ("as_is", dict(max_steps=5), (0,), 7),
     "int64_moves_and_fsm": ("int64", dict(team_mode=True, max_steps=6),
-                            (0, 2), 18, 17),
-    "numpy_moves_and_fsm": ("numpy", dict(max_steps=5), (1,), 18, 17),
+                            (0, 2), 18),
+    "numpy_moves_and_fsm": ("numpy", dict(max_steps=5), (1,), 18),
     "int32_flags": ("flags_i32", dict(max_steps=5, randomize_positions=True),
-                    (), 5, 30),
-    "rand_moves": ("rands", dict(team_mode=True, max_steps=6), (0, 3), 9,
-                   29),
-    "fresh": ("fresh", dict(max_steps=5, randomize_positions=True), (2,), 7,
-              44),
+                    (), 5),
+    "rand_moves": ("rands", dict(team_mode=True, max_steps=6), (0, 3), 9),
+    "fresh": ("fresh", dict(max_steps=5, randomize_positions=True), (2,), 7),
 }
 
 
@@ -756,22 +785,33 @@ def _handed(es, mv, fsm, form, gen):
     return (es, mv, fsm), {}
 
 
-def _fsm_path(host_lib, es, mv, fsm, slots, seed, team_mode=False,
-              max_steps=0, randomize_positions=False, **hooks):
-    return env._env_fsm_launch(host_lib, None, es, mv, fsm, slots, seed,
-                               team_mode, max_steps, randomize_positions,
-                               **hooks)
+def host_card(libs: dict):
+    """A ``launch.card`` that hands out the host builds ``libs`` (by
+    library) in the card's place, and the plain versions for the others."""
+    def card(device, library="kernels"):
+        return (libs[library], None) if library in libs else None
+
+    return card
+
+
+def _fsm_path(host_lib, *args, **kw):
+    """``env_step_auto_reset_batch_fsm`` on CPU tensors through its card
+    path, the host build in the card's place."""
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(launch, "card", host_card({"kernels": host_lib}))
+        return env.env_step_auto_reset_batch_fsm(*args, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("case", sorted(FSM_PATH_CASES))
 @pytest.mark.parametrize("b", [1, 5, 37])
 def test_env_fsm_path_matches_plain(host_lib, b, case):
-    """``_env_fsm_launch`` through the host build against
-    ``env_step_auto_reset_batch_fsm(device="cpu")``, the plain version, over
-    steps in which boards finish (at once, by the step cap, or already
-    done) and reset: every game, env and FSM value bit for bit, the dtypes
-    too; each step's conversions and arrays taken as they are counted."""
-    form, kw, slots, ops, as_is = FSM_PATH_CASES[case]
+    """The card path of ``env_step_auto_reset_batch_fsm`` (``launch.chunk``
+    and ``launch.env_merge``) through the host build against the plain
+    version on CPU tensors, over steps in which boards finish (at once, by
+    the step cap, or already done) and reset: every game, env and FSM value
+    bit for bit, the dtypes too; each step's conversions counted, so every
+    other array was taken as it is."""
+    form, kw, slots, ops = FSM_PATH_CASES[case]
     es = env.env_reset(31, b, device="cpu")
     gen = torch.Generator().manual_seed(b)
     done = torch.zeros(b, dtype=torch.bool)
@@ -789,8 +829,6 @@ def test_env_fsm_path_matches_plain(host_lib, b, case):
         card, fsm_c = _fsm_path(host_lib, *args, slots, 60 + t, **kw,
                                 **hooks)
         assert trace.COUNTERS["wrapper_ops"] - before["wrapper_ops"] == ops
-        assert trace.COUNTERS["arrays_as_is"] - before["arrays_as_is"] == \
-            as_is
         plain, fsm_p = env.env_step_auto_reset_batch_fsm(
             plain, mv, fsm_p, slots, 60 + t, device="cpu", **kw, **hooks)
         _same_env(card, plain, f"{case} {b} boards step {t}")
@@ -815,7 +853,8 @@ def test_env_fsm_path_refuses_a_wrong_device_or_shape(host_lib):
             game=game._replace(board=game.board.to("meta"))), mv, fsm),
         ("agent_dead must be", es._replace(
             game=game._replace(agent_dead=game.agent_dead[:, :3])), mv, fsm),
-        ("fsm_state must be", es, mv, fsm[:3] + [fsm[3][:, :2]] + fsm[4:]),
+        ("fsm_state rp3 must be", es, mv,
+         fsm[:3] + [fsm[3][:, :2]] + fsm[4:]),
         ("ten arrays", es, mv, fsm[:9]),
         ("key must be", es._replace(key=es.key[:, :2]), mv, fsm),
         ("done must be", es._replace(done=es.done.to("meta")), mv, fsm),
@@ -841,9 +880,9 @@ def test_env_fsm_path_calls_no_operator_but_flags_and_outputs(host_lib):
     """On typed inputs the path dispatches exactly 7 PyTorch operators that
     could launch work (``chip_smoke.device_ops``): the bool agent flags'
     two conversions to the chunk's int32 and the five output operations
-    (two casts back, the recount's two, the timestep); the other 28 input
-    arrays are taken as they are.  The outputs of a group share one
-    allocation."""
+    (two casts back, the recount's two, the timestep), which are its
+    ``wrapper_ops``: the other 28 input arrays are taken as they are.  The
+    outputs of a group share one allocation."""
     b = 5
     es = env.env_reset(3, b, device="cpu")
     fsm = simple_fsm_state_init(b, "cpu")
@@ -856,7 +895,6 @@ def test_env_fsm_path_calls_no_operator_but_flags_and_outputs(host_lib):
         ["aten._to_copy.default"] * 2 + ["aten.ne.Scalar"] * 2 +
         ["aten.sum.dim_IntList", "aten.rsub.Scalar", "aten.add.Tensor"])
     assert trace.COUNTERS["wrapper_ops"] - before["wrapper_ops"] == 7
-    assert trace.COUNTERS["arrays_as_is"] - before["arrays_as_is"] == 28
     (card, fsm2), storage = out, (lambda t: t.untyped_storage().data_ptr())
     assert len({storage(t) for t in card.game[:7]}) == 1
     assert len({storage(t) for t in card.game[7:12]}) == 1
@@ -1291,10 +1329,10 @@ def test_feature_source_matches_plain(features_lib, feature_states, state,
     it leaves alone."""
     game = feature_states[state]
     want = ego_features_plain(game, slots, view_range)
-    got = _ego_features_launch(features_lib, None, game, slots, view_range)
+    got = launch.ego_features(features_lib, None, game, slots, view_range)
     assert torch.equal(_bits(got), _bits(want))
     traj = torch.full((3,) + tuple(want.shape), -7.0, dtype=torch.bfloat16)
-    row = _ego_features_launch(features_lib, None, game, slots, view_range,
+    row = launch.ego_features(features_lib, None, game, slots, view_range,
                                out=traj[1])
     assert row.data_ptr() == traj[1].data_ptr() and row.data_ptr() % 16
     assert torch.equal(_bits(traj[1]), _bits(want))
@@ -1312,7 +1350,7 @@ def test_feature_source_on_every_alignment_and_a_tiny_batch(features_lib,
         flat = torch.zeros(want.numel() + 16, dtype=torch.bfloat16)
         for off in range(8):
             out = flat[off:off + want.numel()].view(want.shape)
-            _ego_features_launch(features_lib, None, part, (2, 0), 4, out=out)
+            launch.ego_features(features_lib, None, part, (2, 0), 4, out=out)
             assert torch.equal(_bits(out), _bits(want)), (b, off)
 
 
@@ -1337,7 +1375,7 @@ def test_feature_source_divides_as_the_card_and_the_cpu(features_lib):
     five = torch.full((9, 4), 5, dtype=torch.int32)
     g = g._replace(bomb_timer=vals, bomb_strength=vals, bomb_dir=vals,
                    flame_timer=vals, agent_x=five, agent_y=five)
-    out = _ego_features_launch(features_lib, None, g, (0,), 10)
+    out = launch.ego_features(features_lib, None, g, (0,), 10)
     cells = out.reshape(9, 21, 21, 23)[:, 5:16, 5:16].reshape(9 * 121, 23)
     first = torch.arange(1024)              # the cell holding each value
     for ch, d in ((13, 10), (14, 10), (15, 4), (16, 4)):
@@ -1348,7 +1386,7 @@ def test_feature_source_divides_as_the_card_and_the_cpu(features_lib):
     g = empty_cell_state(256, "cpu")._replace(
         agent_x=s, agent_y=s, agent_max_bombs=s, agent_bomb_count=s,
         agent_strength=s)
-    own = _ego_features_launch(features_lib, None, g, (0, 1, 2, 3), 0)
+    own = launch.ego_features(features_lib, None, g, (0, 1, 2, 3), 0)
     own = own.reshape(1024, 23)
     for ch, d in ((17, 5), (18, 5), (19, 10), (21, 10), (22, 10)):
         assert torch.equal(_bits(own[:, ch]), rounded(d)), ch
@@ -1364,9 +1402,9 @@ def test_feature_marshalling_calls_no_operator_but_the_allocation(
     out = torch.empty((37, 2, 1863), dtype=torch.bfloat16)
     _ext.reset_launches()
     before = trace.COUNTERS["feature_rows"]
-    assert chip_smoke.device_ops(lambda: _ego_features_launch(
+    assert chip_smoke.device_ops(lambda: launch.ego_features(
         features_lib, None, game, (0, 3), 4, out=out)) == []
-    assert chip_smoke.device_ops(lambda: _ego_features_launch(
+    assert chip_smoke.device_ops(lambda: launch.ego_features(
         features_lib, None, game, (1,), 4)) == []
     assert trace.COUNTERS["feature_rows"] - before == 37 * 3
     assert not any(_ext.LAUNCHES.values())
@@ -1375,7 +1413,7 @@ def test_feature_marshalling_calls_no_operator_but_the_allocation(
 def test_feature_path_refuses_what_it_does_not_take(features_lib,
                                                     feature_states):
     game = feature_states["reset"]
-    run = functools.partial(_ego_features_launch, features_lib, None)
+    run = functools.partial(launch.ego_features, features_lib, None)
     for bad, match in [
             (game._replace(board=game.board.long()), "board must be"),
             (game._replace(agent_can_kick=game.agent_can_kick.int()),
@@ -1416,11 +1454,8 @@ def test_collect_through_the_feature_source_matches_plain(
     b = 9
 
     def collect(kernel):
-        if kernel:
-            monkeypatch.setattr(features, "_card_launcher",
-                                lambda device: (features_lib, None))
-        else:
-            monkeypatch.setattr(features, "_card_launcher", lambda device: None)
+        libs = {"features": features_lib} if kernel else {}
+        monkeypatch.setattr(launch, "card", host_card(libs))
         ts = tppo.ppo_init(3, cfg, device="cpu")
         frozen = tppo.ppo_init(4, cfg, device="cpu").model
         es = env.env_reset(6, b, device="cpu")

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import chip_smoke
-from pomcpp_tpu_torch import _ext, trace
+from pomcpp_tpu_torch import _ext, launch, trace
 from pomcpp_tpu_torch.convert import diff_fields
 from pomcpp_tpu_torch.core.board_gen import random_cell_state
 from pomcpp_tpu_torch.engine.fsm import (
@@ -209,13 +209,14 @@ def test_env_kernels_on_the_card_match_cpu(cuda, inject, all_done):
 @pytest.mark.parametrize("form,as_is", [("typed", 28), ("int64", 17),
                                         ("host", 17)])
 def test_fsm_env_step_typed_path_on_the_card(cuda, form, as_is):
-    """The env step's own card path (``_env_fsm_launch``) from a state on
-    the card, with int32 or int64 moves and FSM arrays on the card, or
-    moves as a numpy array and FSM arrays on the host (copied to the card):
-    every step equals the plain version on the CPU bit for bit (game, env
-    and FSM state), launches exactly one simple chunk and one merge, reads
-    nothing back from arrays on the card, and takes ``as_is`` of its 30
-    input arrays as they are."""
+    """The env step's card path (``launch.chunk`` and ``launch.env_merge``)
+    from a state on the card, with int32 or int64 moves and FSM arrays on
+    the card, or moves as a numpy array and FSM arrays on the host (copied
+    to the card): every step equals the plain version on the CPU bit for
+    bit (game, env and FSM state), launches exactly one simple chunk and one
+    merge, reads nothing back from arrays on the card, and takes ``as_is``
+    of its 30 input arrays as they are: its ``wrapper_ops`` are the others'
+    conversions and its five output operations."""
     b = 256
     start = chip_smoke.env_held_start(b, 6)
     plain, card = start, env._env_to_device(start, cuda)
@@ -241,8 +242,8 @@ def test_fsm_env_step_typed_path_on_the_card(cuda, form, as_is):
         assert {k: v - before[k] for k, v in _ext.LAUNCHES.items()
                 if v != before[k]} == {"rollout_chunk_simple_kernel": 1,
                                        "env_merge_kernel": 1}
-        assert trace.COUNTERS["arrays_as_is"] - counts["arrays_as_is"] == \
-            as_is
+        assert trace.COUNTERS["wrapper_ops"] - counts["wrapper_ops"] == \
+            30 - as_is + 5
         plain, fsm_p = env.env_step_auto_reset_batch_fsm(
             plain, mv, fsm_p, (0,), 90 + t, max_steps=10, device="cpu")
         _same_env(card, plain, f"{form} step {t}")
@@ -395,9 +396,14 @@ def test_iteration_features_equal_the_plain_path(cuda, monkeypatch):
 
     cfg = _vs_simple_cfg(64)
 
+    card = launch.card
+
+    def plain_features(device, library="kernels"):
+        return None if library == "features" else card(device, library)
+
     def iteration(kernel):
         if not kernel:
-            monkeypatch.setattr(features, "_card_launcher", lambda d: None)
+            monkeypatch.setattr(launch, "card", plain_features)
         ts = tppo.ppo_init(7, cfg, device=cuda)
         es = env.env_reset(7, 2048, device=cuda)
         rec = {}

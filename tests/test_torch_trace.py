@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
-from pomcpp_tpu_torch import _ext, trace
+from pomcpp_tpu_torch import _ext, launch, trace
 from pomcpp_tpu_torch.convert import diff_fields
 from pomcpp_tpu_torch.core.board_gen import random_cell_state
 from pomcpp_tpu_torch.core.state import empty_state, put_agents_in_corners
@@ -20,7 +20,7 @@ from pomcpp_tpu_torch.engine import fused_step as fs
 from pomcpp_tpu_torch.engine.fsm import simple_fsm_state_init
 from pomcpp_tpu_torch.engine.step import step as exact_step
 from pomcpp_tpu_torch.env import environment as env
-from test_torch_csrc import _host_build
+from test_torch_csrc import _host_build, host_card
 
 CARD_TREE = {"env.step": ["env.args", "chunk", "merge"],
              "chunk": ["chunk.args", "chunk.launch", "chunk.out"],
@@ -47,17 +47,13 @@ def tracing():
 
 @pytest.fixture
 def card_path(host_lib, monkeypatch):
-    """The host build's launchers in the plain versions' place: the env
-    step on CPU tensors takes its card path (``_env_fsm_launch``), and
-    ``rollout_chunk`` its chunk launcher."""
-    def chunk(cs, seed, steps, policy, *rest):
-        return fs._rollout_chunk_launch(host_lib, None, cs, seed, steps,
-                                        fs.POLICY_MOVES[policy], *rest)
-
-    monkeypatch.setattr(fs, "rollout_chunk_plain", chunk)
-    monkeypatch.setattr(env, "_card_launcher", lambda device: (host_lib,
-                                                                None))
-    return host_lib
+    """The host build in the card's place (``launch.card``): the env step
+    and ``rollout_chunk`` on CPU tensors take their card paths.  The
+    features keep their plain version unless a test adds its host build to
+    the returned libraries."""
+    libs = {"kernels": host_lib}
+    monkeypatch.setattr(launch, "card", host_card(libs))
+    return libs
 
 
 def _env_steps(n, b=6, seed=3):
@@ -98,12 +94,13 @@ def _tree(records, root):
 
 @pytest.mark.parametrize("path,tree,counts", [
     ("cpu", CPU_TREE, {}),
-    ("card", CARD_TREE, {"wrapper_ops": 7, "arrays_as_is": 28}),
+    ("card", CARD_TREE, {"wrapper_ops": 7}),
 ])
 def test_env_step_span_tree(request, tracing, path, tree, counts):
     """The span tree of each route, and the counters a step moves: on the
-    typed card path every input array but the two bool agent flags is taken
-    as it is."""
+    card path every input array but the two bool agent flags is taken as it
+    is (their conversions and the five output operations are the step's
+    ``wrapper_ops``)."""
     if path == "card":
         request.getfixturevalue("card_path")
     _env_steps(2)
@@ -154,9 +151,8 @@ def _calls(host_lib, policy, n, b=3):
     cs = random_cell_state(b, generator=torch.Generator().manual_seed(9))
     fsm = simple_fsm_state_init(b, "cpu") if policy == "simple" else None
     for k in range(n):
-        got = fs._rollout_chunk_launch(host_lib, None, cs, 40 + k, k + 1,
-                                       fs.POLICY_MOVES[policy], None, False,
-                                       True, None, fsm, (), False)
+        got = launch.chunk(host_lib, None, cs, 40 + k, k + 1, policy,
+                           fsm_state=fsm)
         want = fs.rollout_chunk_plain(cs, 40 + k, k + 1, policy,
                                       fsm_state=fsm)
         if fsm is None:
@@ -215,9 +211,10 @@ def test_wrapper_ops_counts_conversions_alone(marshal, flags, made):
     int32 arrays, and an int32 one two to the env kernels' bytes; an array
     already typed takes none."""
     cs = _flags_as(random_cell_state(2, seed=1, device="cpu"), flags)
-    fn = fs._kernel_inputs if marshal == "kernel_inputs" else fs.game_arrays
+    view = launch.STATE_VIEW if marshal == "kernel_inputs" else \
+        launch.GAME_VIEW
     before = trace.COUNTERS["wrapper_ops"]
-    fn(cs, "cpu")
+    launch._arrays(view, cs, 2, torch.device("cpu"))
     assert trace.COUNTERS["wrapper_ops"] - before == made
 
 
@@ -232,9 +229,8 @@ def test_wrapper_ops_counts_every_operation_the_chunk_wrapper_enqueues(
     fsm = None if fsm_dtype is None else \
         [t.to(fsm_dtype) for t in simple_fsm_state_init(3, "cpu")]
     before = trace.COUNTERS["wrapper_ops"]
-    ops = chip_smoke.device_ops(lambda: fs._rollout_chunk_launch(
-        host_lib, None, cs, 7, 2, fs.POLICY_MOVES[policy], None, False, True,
-        None, fsm, (), False))
+    ops = chip_smoke.device_ops(lambda: launch.chunk(
+        host_lib, None, cs, 7, 2, policy, fsm_state=fsm))
     assert trace.COUNTERS["wrapper_ops"] - before == len(ops) == \
         7 + (10 if fsm_dtype is torch.int64 else 0)
 
@@ -316,15 +312,12 @@ def features_host_lib(tmp_path_factory):
 
 
 def test_ppo_step_counts_every_act_as_feature_rows_on_the_card_path(
-        tracing, card_path, features_host_lib, monkeypatch):
+        tracing, card_path, features_host_lib):
     """With the card's launchers in place (the host builds), every act's
     features take the feature kernel: the ``ppo.step`` root counts as many
     feature rows as rows through the forward, and ``ppo.features`` sits in
     each ``ppo.act``."""
-    from pomcpp_tpu_torch.models import features
-
-    monkeypatch.setattr(features, "_card_launcher",
-                        lambda device: (features_host_lib, None))
+    card_path["features"] = features_host_lib
     _ppo_iteration()
     records = trace.records()
     roots = [r for r in records if r.parent_id == 0]

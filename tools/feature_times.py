@@ -31,7 +31,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from pomcpp_tpu_torch import _ext  # noqa: E402
+from pomcpp_tpu_torch import _ext, launch  # noqa: E402
 from pomcpp_tpu_torch.device import method_floor, time_device  # noqa: E402
 from pomcpp_tpu_torch.learner import ppo  # noqa: E402
 from pomcpp_tpu_torch.models import features  # noqa: E402
@@ -106,14 +106,14 @@ def main(argv=None) -> int:
             lambda: features.ego_features(game, slots, 4, out=out)))
         row["plain_ops"] = len(chip_smoke.device_ops(
             lambda: features.ego_features_plain(game, slots, 4)))
-        kernel = features._card_launcher
-        for name, launcher in (("act_kernel_host_ms", kernel),
-                               ("act_plain_host_ms", lambda device: None)):
-            features._card_launcher = launcher    # None: the plain version
+        card = launch.card
+        for name, switch in (("act_kernel_host_ms", card),
+                             ("act_plain_host_ms", lambda *_: None)):
+            launch.card = switch    # None: the plain version
             with torch.no_grad():
                 row[name] = host_ms(lambda: ppo._policy_slots(
                     ts.model, game, ts.gen, slots, 4, out=out))
-        features._card_launcher = kernel
+        launch.card = card
         print(json.dumps(row), flush=True)
     return 0
 
