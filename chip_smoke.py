@@ -340,6 +340,97 @@ def ring_state(device, dead=()):
         agent_y=torch.tensor([[y for _, y in ring]], **i32)), gone)
 
 
+def _need_game(device, agents, dead=(), rigid=(), bombs=(), loops=()):
+    """One board: the four agents at ``agents`` (the dead ones off the
+    board), rigid walls at ``rigid``, bombs ``(x, y, timer, strength,
+    owner)``; and its FSM state, every ring four distinct cells but the
+    agents in ``loops``, whose rings repeat."""
+    import torch
+
+    from pomcpp_tpu_torch.agents.simple import FsmState
+    from pomcpp_tpu_torch.engine.cellular import empty_cell_state
+
+    cs = empty_cell_state(1, device)
+    board, bt, bs, bo = (cs.board.clone(), cs.bomb_timer.clone(),
+                         cs.bomb_strength.clone(), cs.bomb_owner.clone())
+    count = [0] * 4
+    for x, y in rigid:
+        board[0, x + 11 * y] = 1
+    for x, y, timer, strength, owner in bombs:
+        c = x + 11 * y
+        board[0, c], bt[0, c], bs[0, c], bo[0, c] = 3, timer, strength, owner
+        count[owner] += 1
+    for i, (x, y) in enumerate(agents):
+        if i not in dead:
+            board[0, x + 11 * y] = 10 + i
+    i32 = dict(dtype=torch.int32, device=device)
+    gone = torch.tensor([[i in dead for i in range(4)]], device=device)
+    cs = kill(cs._replace(
+        board=board, bomb_timer=bt, bomb_strength=bs, bomb_owner=bo,
+        agent_x=torch.tensor([[x for x, _ in agents]], **i32),
+        agent_y=torch.tensor([[y for _, y in agents]], **i32),
+        agent_bomb_count=torch.tensor([count], **i32)), gone)
+    ring = [[15 + k + 13 * i if i not in loops else (20, 21)[k % 2]
+             for i in range(4)] for k in range(4)]
+    zero = torch.zeros((1, 4), **i32)
+    fsm = FsmState(*(torch.tensor([r], **i32) for r in ring), zero,
+                   torch.full((1, 4), 4, **i32), zero, zero, zero, zero)
+    return cs, fsm
+
+
+def bfs_need_states(device) -> dict:
+    """One-board states that fix whether the SimpleAgent's BFS runs
+    (``wl::fsm_act``): name -> (CellState, FSM state, learner slots injected,
+    acts that run a BFS round, BFS rounds after an act's first).  Only a
+    live agent in danger with an enterable safe cell in its flee window, or
+    one that would step toward an enemy within 7 (can bomb, none within 1,
+    no loop in its ring), needs the BFS; an act that runs it runs it until
+    no field changes."""
+    corners = ((0, 0), (10, 0), (0, 10), (10, 10))
+    wall = tuple((2, y) for y in range(10))
+    # Agent `who` at (1, 1) in the danger of a bomb below it; one other
+    # agent alive, at (10, 10).
+    def flee(timer, who=0, rigid=()):
+        others = iter(((10, 10), (10, 0), (0, 10)))
+        agents = tuple((1, 1) if i == who else next(others) for i in range(4))
+        live = agents.index((10, 10))
+        return _need_game(device, agents,
+                          dead=tuple(i for i in range(4) if i not in (who, live)),
+                          rigid=rigid, bombs=((1, 2, timer, 1, live),))
+
+    return {
+        # Four calm agents 10 or more apart: no round at all.
+        "no_need": _need_game(device, corners) + ((), 0, 0),
+        # Agent 2's window of radius 2: (0, 0) alone is enterable and safe,
+        # and walled off; the BFS runs until no field changes.
+        "flee_walled": flee(2, who=2, rigid=((1, 0), (0, 1))) + ((), 1, 18),
+        # Window of radius 3, its cells all within 2 steps: the BFS still
+        # runs until no field changes.
+        "flee_near": flee(3) + ((), 1, 20),
+        # Agent 0 in danger at (8, 8): its window (x and y below the radius)
+        # holds no cell, so no round runs.
+        "flee_no_window": _need_game(device, ((8, 8), (0, 0), (10, 0), (0, 10)),
+                                     dead=(2, 3), bombs=((8, 9, 3, 1, 1),))
+        + ((), 0, 0),
+        # Agents 0 and 1 four apart across a wall: the way round is 14 steps,
+        # and the BFS runs until no field changes.
+        "enemy_detour": _need_game(device, ((0, 5), (4, 5), (10, 0), (10, 10)),
+                                   rigid=wall) + ((), 1, 30),
+        # The same, but their rings loop: they take b2, not the BFS's move.
+        "enemy_loop": _need_game(device, ((0, 5), (4, 5), (10, 0), (10, 10)),
+                                 rigid=wall, loops=(0, 1)) + ((), 0, 0),
+        # Agents 0 and 1 side by side: both bomb (b1).
+        "enemy_adjacent": _need_game(device, ((4, 5), (5, 5), (10, 0), (10, 10)))
+        + ((), 0, 0),
+        # Dead agent 2 in a bomb's cross next to agent 0, which is calm.
+        "dead_in_danger": _need_game(device, ((5, 5), (0, 0), (6, 5), (10, 10)),
+                                     dead=(2, 3), bombs=((7, 5, 5, 1, 1),))
+        + ((), 0, 0),
+        # Learner slot 0 injected: the FSM still acts, and needs, for it.
+        "slot0_injected": flee(3) + ((0,), 1, 20),
+    }
+
+
 FEATURE_EDGES = ((0, 0), (10, 0), (0, 10), (10, 10), (5, 0), (0, 5),
                  (10, 5), (5, 10), (1, 9), (9, 1), (5, 5))
 
@@ -1450,7 +1541,8 @@ def phase_shares(rows) -> dict:
     out = {k: round(v / max(cycles, 1), 4) for k, v in got.items()
            if not k.startswith("n_")}
     out["warp_cycles_per_step"] = round(cycles / steps, 1)
-    for k in ("n_bfs_rounds", "n_bomb_steps", "n_move_passes", "n_blasts"):
+    for k in ("n_bfs_rounds", "n_bfs_acts", "n_bomb_steps", "n_move_passes",
+              "n_blasts"):
         out[k + "_per_step"] = round(got[k] / steps, 4)
     return out
 

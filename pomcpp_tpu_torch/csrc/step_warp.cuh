@@ -82,18 +82,19 @@ constexpr int CPL = 4;  // cells per lane
 enum Phase {
   PH_DRAW = 0,   // moves drawn, pipelined reset merged
   PH_DANGER,     // FSM: danger map
-  PH_BFS,        // FSM: four-agent BFS
-  PH_FLEE,       // FSM: maps to shared memory, flee targets
+  PH_BFS,        // FSM: maps to shared memory, the agents' needs, four-agent BFS
+  PH_FLEE,       // FSM: BFS fields to shared memory, flee targets
   PH_DECIDE,     // FSM: decision cascade on lanes 0-3
   PH_MOVE,       // step phases 0-1: flames, agent movement
   PH_BOMBS,      // step phase 2: bomb kinematics
   PH_BLAST,      // step phase 3: explosions
   PH_REST,       // record, loop tail
-  N_BFS_ROUNDS,  // count: BFS rounds
+  N_BFS_ROUNDS,  // count: BFS rounds after an act's first
   N_BOMB_STEPS,  // count: steps that got past the "no bomb" gate
   N_MOVE_PASSES, // count: steps whose move pass ran
   N_BLASTS,      // count: explosion rounds
   N_STEPS,       // count: steps
+  N_BFS_ACTS,    // count: acts that ran a BFS round
   PHASE_SLOTS
 };
 

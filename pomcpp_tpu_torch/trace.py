@@ -87,7 +87,7 @@ ROWS_PER_BLOCK = 4096
 # wl::Phase of csrc/step_warp.cuh: warp-cycle sums, then event counts.
 PHASES = ("draw", "danger", "bfs", "flee", "decide", "move", "bombs", "blast",
           "rest", "n_bfs_rounds", "n_bomb_steps", "n_move_passes", "n_blasts",
-          "n_steps")
+          "n_steps", "n_bfs_acts")
 
 ON = False
 LAUNCHES: dict = {}

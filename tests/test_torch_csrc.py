@@ -645,13 +645,14 @@ def test_simple_chunk_source_carries_its_state_across_chunks(host_lib):
 # --- the act kernel on the CPU ----------------------------------------------------
 
 
-def _acts_both(host_lib, cs, acts, seed):
+def _acts_both(host_lib, cs, acts, seed, fsm=None):
     """``acts`` acts of ``fsm_act_kernel``'s source and of ``fsm_act_plain``
-    in a row, the FSM state carried and the board stepped by the plain
-    version between acts; moves and all ten FSM arrays held bit for bit."""
+    in a row, the FSM state carried (from ``fsm``, else a fresh one) and the
+    board stepped by the plain version between acts; moves and all ten FSM
+    arrays held bit for bit."""
     b = cs.board.shape[0]
     gen = torch.Generator().manual_seed(seed)
-    fk = fp = simple_fsm_state_init(b, "cpu")
+    fk = fp = simple_fsm_state_init(b, "cpu") if fsm is None else fsm
     for t in range(acts):
         rand = torch.randint(0, 5, (b, 4), generator=gen, dtype=torch.int32)
         mk, fk = launch.fsm_act(host_lib, None, cs, fk, rand)
@@ -685,6 +686,42 @@ def test_act_source_matches_plain_on_swept_states(host_lib, state, dead):
     one = chip_smoke.kick_heavy_state("cpu") if state == "kick_heavy" else \
         chip_smoke.ring_state("cpu", dead)
     _acts_both(host_lib, _copies(one, 32), 2, 5)
+
+
+@pytest.fixture
+def every_call_clocked(monkeypatch):
+    """Tracing on from empty rows, every chunk call on the clocked
+    instance."""
+    monkeypatch.setattr(trace, "SAMPLE_EVERY", 1)
+    trace.clear()
+    trace.enable()
+    yield
+    trace.disable()
+    trace.clear()
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.bfs_need_states("cpu")))
+def test_bfs_runs_only_where_a_decision_reads_it(host_lib, every_call_clocked,
+                                                  case):
+    """Crafted boards (``chip_smoke.bfs_need_states``), 5 copies: two acts of
+    the act kernel's source and a one-step simple chunk equal their plain
+    versions on moves and all ten FSM arrays, and the chunk's clocked
+    instance counts the acts that ran a BFS round, and the rounds after
+    each act's first, as the need rule says."""
+    cs, fsm, inject, acts, rounds = chip_smoke.bfs_need_states("cpu")[case]
+    b = 5
+    cs = _copies(cs, b)
+    fsm = type(fsm)(*(t.expand(b, 4).contiguous() for t in fsm))
+    _acts_both(host_lib, cs, 2, 17, fsm=fsm)
+    kw = dict(fsm_state=fsm, auto_reset=False,
+              moves=torch.randint(0, 6, (1, b, 4), dtype=torch.int32,
+                                  generator=torch.Generator().manual_seed(5)))
+    if inject:
+        kw.update(inject_slots=inject, prng_rand=True)
+    _same(*_both(host_lib, cs, 23, 1, "simple", **kw))
+    (row,) = trace.phase_rows()
+    assert (row.totals["n_bfs_acts"], row.totals["n_bfs_rounds"]) == \
+        (acts * b, rounds * b)
 
 
 def test_act_marshalling_calls_no_operator_but_allocations(host_lib):

@@ -96,6 +96,44 @@ def test_fsm_act_kernel_matches_plain(cuda):
         cs = fused_step_plain(cs, torch.where(cs.agent_dead, 0, mp))
 
 
+@pytest.mark.parametrize("case", sorted(chip_smoke.bfs_need_states("cpu")))
+def test_bfs_runs_only_where_a_decision_reads_it(cuda, monkeypatch, case):
+    """The crafted boards of ``chip_smoke.bfs_need_states``, 64 copies:
+    ``fsm_act_kernel`` and a one-step simple chunk equal their plain
+    versions, and the clocked instance counts the acts that ran a BFS round
+    and the rounds after each act's first as the need rule says.  On the
+    card because ptxas compiles what the host build cannot show."""
+    cs, fsm, inject, acts, rounds = chip_smoke.bfs_need_states(cuda)[case]
+    b = 64
+    cs = chip_smoke.copies(cs, b)
+    fsm = type(fsm)(*(t.expand(b, 4).contiguous() for t in fsm))
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    rand = torch.randint(0, 5, (b, 4), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    mk, fk = fsm_act(cs, fsm, rand)
+    mp, fp = fsm_act_plain(cs, fsm, rand)
+    chip_smoke.expect_fsm_equal(f"{case} act", (mk,) + fk, (mp,) + fp)
+    kw = dict(record=True, fsm_state=fsm, auto_reset=False,
+              moves=torch.randint(0, 6, (1, b, 4), generator=gen, device=cuda,
+                                  dtype=torch.int32))
+    if inject:
+        kw.update(inject_slots=inject, prng_rand=True)
+    monkeypatch.setattr(trace, "SAMPLE_EVERY", 1)
+    trace.clear()
+    trace.enable()
+    try:
+        k = rollout_chunk(cs, 23, 1, "simple", **kw)
+        (row,) = trace.phase_rows()
+    finally:
+        trace.disable()
+        trace.clear()
+    p = rollout_chunk_plain(cs, 23, 1, "simple", **kw)
+    assert not diff_fields(k[0], p[0], skip=())
+    chip_smoke.expect_fsm_equal(f"{case} chunk", k[1:3] + k[3], p[1:3] + p[3])
+    assert (row.totals["n_bfs_acts"], row.totals["n_bfs_rounds"]) == \
+        (acts * b, rounds * b)
+
+
 @pytest.mark.parametrize("b", CHUNK_BATCHES)
 @pytest.mark.parametrize("inject_slots,prng_rand", [((), False), ((0,), True)])
 def test_simple_chunk_kernel_matches_plain(cuda, inject_slots, prng_rand, b):

@@ -177,8 +177,9 @@ def test_clocked_instance_matches_plain_and_counts(host_lib, tracing, policy):
         assert all(r.totals[p] == 0 for p in trace.PHASES[:9])  # clock64() = 0
         if policy == "simple":
             assert r.totals["n_bfs_rounds"] > 0
+            assert 0 < r.totals["n_bfs_acts"] <= r.totals["n_steps"]
         else:
-            assert r.totals["n_bfs_rounds"] == 0
+            assert r.totals["n_bfs_rounds"] == r.totals["n_bfs_acts"] == 0
             assert all(r.totals[p] == 0
                        for p in ("danger", "bfs", "flee", "decide"))
 
